@@ -95,3 +95,9 @@ def small_system():
     """A compact 2-GPU + 1-CPU board system on the NUMA tier (function
     scope: simulations mutate pool/queue state)."""
     return build_board_system(SMALL_BOARD, NUMA, n_gpu=2, n_cpu=1)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA card (the port's kernels); skips "
+                   "without one")
