@@ -6,21 +6,38 @@
 Phases, each of which ends the run with a nonzero exit when it fails:
 
 1. environment: the card's name and power limit, torch and CUDA versions;
-2. build: ``nvcc`` compiles the decode_attention kernel from the checkout;
-3. kernel vs plain: the kernel against ``decode_attention_ref`` on the card
-   at the serving geometry and at phi4-mini's and starcoder2-3b's attention
-   geometry, with its time, its bound, the plain version's time and the time
-   of ``scaled_dot_product_attention`` as a library yardstick;
-4. the main path: ``repro_torch.launch.serve --mode real --decode`` on the
-   card, every decode step through the kernel;
+2. build: ``nvcc`` compiles every kernel of the port from the checkout,
+   one compiler per source, all started together;
+3. decode kernel vs plain: ``decode_attention`` against
+   ``decode_attention_ref`` on the card at the serving geometry, at
+   phi4-mini's and starcoder2-3b's attention geometry and at the rings the
+   transformer's decode uses, with its time, its bound, the plain version's
+   time and the time of ``scaled_dot_product_attention`` as a library
+   yardstick;
+4. serving with decode: ``repro_torch.launch.serve --mode real --decode``
+   on the card, every decode step through the decode kernel;
 5. the same server with phi4-mini's ring geometry;
-6. ``--mode real`` and ``--mode online --engine real`` without decode.
+6. ``--mode real`` and ``--mode online --engine real`` without decode;
+7. flash kernel vs plain: ``flash_attention`` against
+   ``flash_attention_ref`` at starcoder2-3b's and phi4-mini's prefill, a
+   cached prefix, a sliding window, a ragged fp32 case, a non-causal one
+   and phase 9's 16-token batches in the layout the model hands it, with
+   the same timings and SDPA as the yardstick;
+8. the transformer at StarCoder2-3B's full width: (a) 2 layers in float32,
+   the kernels' path against the plain-torch path and greedy generation
+   against teacher forcing; (b) all 30 layers with bf16 weights, a
+   4096-token prefill and 32 decode steps, timed and profiled;
+9. the LM-expert router (``repro_torch.launch.lm_coe_router``) at full
+   width with its depth cut to 2 layers: 90 prompts under both policies,
+   every expert forward through the flash kernel, and every served forward
+   run again through the plain-torch attention path to compare.
 
 The last two lines of output are ``{"kernels": [...]}`` and
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import gc
 import json
 import math
 import os
@@ -40,8 +57,12 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 L2_BYTES = 50 * 2 ** 20
 
-KERNEL_SOURCE = "src/repro_torch/kernels/csrc/decode_attention.cu"
-REPLACES = "src/repro/kernels/decode_attention.py:66"
+BF16_OPS_PER_S = 989e12       # dense bf16 on the tensor cores
+
+DECODE_SOURCE = "src/repro_torch/kernels/csrc/decode_attention.cu"
+DECODE_REPLACES = "src/repro/kernels/decode_attention.py:66"
+FLASH_SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
+FLASH_REPLACES = "src/repro/kernels/flash_attention.py:84"
 
 F32, BF16 = torch.float32, torch.bfloat16
 # (label, batch, heads, kv heads, head dim, ring width, window, q, kv)
@@ -51,6 +72,9 @@ GEOMETRIES = [
     ("phi4-mini bf16", 1, 24, 8, 128, 4096, 0, BF16, BF16),
     ("phi4-mini fp32-q/bf16-kv", 1, 24, 8, 128, 4096, 0, F32, BF16),
     ("starcoder2-3b window 1024", 1, 24, 2, 128, 4096, 1024, BF16, BF16),
+    # the rings of phase 8: (b) 4096 + 32 tokens in bf16, (a) 512 + 16 fp32
+    ("starcoder2-3b decode bf16", 1, 24, 2, 128, 4128, 0, BF16, BF16),
+    ("starcoder2-3b decode fp32, batch 2", 2, 24, 2, 128, 528, 0, F32, F32),
 ]
 REPORTED = ("phi4-mini bf16", "3W+17")   # the line the kernels JSON carries
 PHI4_RING = dict(num_heads=24, num_kv_heads=8, head_dim=128, width=4096,
@@ -268,6 +292,437 @@ def serve_decode(serve, da, argv, ring=None):
     return launches
 
 
+def build_all():
+    """Phase 2: one nvcc per kernel source, all started together."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch.kernels import build
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=2) as pool:
+        libs = list(pool.map(build.build_library, (da.SOURCE, fa.SOURCE)))
+    print(f"built {', '.join(os.path.relpath(p, ROOT) for p in libs)} in "
+          f"{time.perf_counter() - t0:.1f} s")
+    for lib in libs:
+        for ln in lib.with_suffix(".log").read_text().splitlines():
+            if "registers" in ln or "spill" in ln or "Compiling" in ln:
+                print("  ptxas:", ln.strip())
+
+
+# (label, batch, heads, kv heads, S, T, head dim, dtype, causal, window,
+#  layout); layout "bshd" hands the kernel [B,H,S,D] views of [B,S,H,D]
+# tensors, as attention_block does
+FLASH_GEOMETRIES = [
+    ("starcoder2-3b prefill", 1, 24, 2, 4096, 4096, 128, BF16, True, 0,
+     "bhsd"),
+    ("phi4-mini prefill", 1, 24, 8, 2048, 2048, 128, BF16, True, 0, "bhsd"),
+    ("cached prefix", 2, 24, 2, 512, 4096, 128, BF16, True, 0, "bhsd"),
+    ("sliding window 1024", 1, 24, 2, 4096, 4096, 128, BF16, True, 1024,
+     "bhsd"),
+    ("ragged fp32", 2, 12, 2, 1000, 1000, 128, F32, True, 0, "bhsd"),
+    ("non-causal fp32", 1, 4, 4, 384, 384, 64, F32, False, 0, "bhsd"),
+    # phase 9's forwards: 16-token prompts in batches padded to 1/2/4/8
+    *((f"lm router, batch {b}", b, 24, 2, 16, 16, 128, BF16, True, 0,
+       "bshd") for b in (1, 2, 4, 8)),
+]
+FLASH_REPORTED = "starcoder2-3b prefill"
+
+
+def visible_pairs(s: int, t: int, causal: bool, window: int) -> int:
+    """The (query row, key) pairs the mask lets through: row i sits at
+    position t - s + i."""
+    qpos = np.arange(s) + (t - s)
+    hi = qpos + 1 if causal else np.full(s, t)
+    lo = np.maximum(0, qpos - window + 1) if window else np.zeros(s, int)
+    return int(np.maximum(hi - lo, 0).sum())
+
+
+def flash_vs_plain(fa, ref):
+    """Phase 7: one line per geometry; returns the lines."""
+    import torch.nn.functional as F
+
+    lines = []
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    for (label, b, h, hkv, s, t, d, dt, causal, window,
+         layout) in FLASH_GEOMETRIES:
+        per_set = (2 * b * h * s * d + 2 * b * hkv * t * d) * (
+            2 if dt == BF16 else 4)
+        copies = max(1, min(8, math.ceil(2 * L2_BYTES / per_set)))
+
+        def draw(bb, hh, ss):
+            if layout == "bshd":
+                return torch.randn((bb, ss, hh, d), generator=gen,
+                                   device=dev).to(dt).transpose(1, 2)
+            return torch.randn((bb, hh, ss, d), generator=gen,
+                               device=dev).to(dt)
+
+        sets = [(draw(b, h, s), draw(b, hkv, t), draw(b, hkv, t))
+                for _ in range(copies)]
+        tol = 2e-5 if dt == F32 else 2e-2
+        q, k, v = sets[0]
+        got = fa.flash_attention(q, k, v, causal=causal, window=window)
+        want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        if not torch.allclose(got.float(), want.float(), rtol=tol, atol=tol):
+            raise AssertionError(
+                f"flash_attention disagrees with its plain version at "
+                f"{label}: max |err| {err} > tol {tol}")
+
+        def kernel(q, k, v):
+            return fa.flash_attention(q, k, v, causal=causal, window=window)
+
+        def plain(q, k, v):
+            return ref.flash_attention_ref(q, k, v, causal=causal,
+                                           window=window)
+
+        ms = time_ms(kernel, sets, 20)
+        eager_ms = time_ms(kernel, sets, 20, graph=False)
+        plain_ms = time_ms(plain, sets[:1], 3)
+        # library yardstick: SDPA, causal by its own flag when S = T and
+        # there is no window, else with the boolean mask made outside the
+        # timing
+        if causal and not window and s == t:
+            kw = dict(is_causal=True)
+        elif not causal and not window:
+            kw = {}
+        else:
+            qp = torch.arange(s, device=dev)[:, None] + (t - s)
+            kp = torch.arange(t, device=dev)[None, :]
+            mask = torch.ones((s, t), dtype=torch.bool, device=dev)
+            if causal:
+                mask &= qp >= kp
+            if window:
+                mask &= (qp - kp) < window
+            kw = dict(attn_mask=mask)
+
+        def library(q, k, v):
+            return F.scaled_dot_product_attention(q, k, v, enable_gqa=True,
+                                                  **kw)
+
+        lib_ms = time_ms(library, sets, 20)
+        lib_err = (library(q, k, v).float() - want.float()).abs().max().item()
+        pairs = visible_pairs(s, t, causal, window)
+        nbytes = (2 * b * h * s * d + 2 * b * hkv * t * d) * q.element_size()
+        ops = 4 * b * h * d * pairs
+        t_bytes = nbytes / HBM_BYTES_PER_S
+        t_ops = ops / (BF16_OPS_PER_S if dt == BF16 else FP32_OPS_PER_S)
+        line = {"shape": f"{label}: B={b} H={h} Hkv={hkv} S={s} T={t} D={d} "
+                         f"{'bf16' if dt == BF16 else 'fp32'} causal={causal} "
+                         f"window={window} layout={layout}",
+                "max_abs_err": err, "tol": tol, "ms": ms,
+                "eager_ms": eager_ms, "plain_ms": plain_ms,
+                "library_ms": lib_ms, "library_max_abs_err": lib_err,
+                "bound_ms": max(t_bytes, t_ops) * 1e3,
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                "visible_pairs": pairs,
+                "tflops": ops / (ms * 1e-3) / 1e12,
+                "reported": label == FLASH_REPORTED}
+        print(json.dumps(line), flush=True)
+        lines.append(line)
+        del sets, got, want
+        torch.cuda.empty_cache()
+    return lines
+
+
+def kernel_split(prof, names, n_other: int = 4):
+    """Device ms of a profile, summed by kernel family: each of ``names``
+    (matched as a substring), the matmuls (cuBLAS/CUTLASS), the rest;
+    and the ``n_other`` largest kernels of the rest, by name."""
+    out = {n: 0.0 for n in (*names, "matmul", "other")}
+    other = {}
+    for e in prof.key_averages():
+        if e.device_time_total <= 0:
+            continue
+        key = e.key.lower()
+        fam = next((n for n in names if n in key), None)
+        if fam is None:
+            fam = "matmul" if any(m in key for m in (
+                "gemm", "gemv", "xmma", "cutlass", "cublas", "nvjet",
+                "matmul")) else "other"
+        out[fam] += e.device_time_total / 1e3
+        if fam == "other":
+            other[e.key[:60]] = e.device_time_total / 1e3
+    top = dict(sorted(other.items(), key=lambda kv: -kv[1])[:n_other])
+    return out, top
+
+
+def transformer_phases(fa, da):
+    """Phase 8 at StarCoder2-3B's full width; returns (a)'s and (b)'s
+    summaries."""
+    import dataclasses
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.convert import flatten_params
+    from repro_torch.models import sampling, transformer
+
+    dev = torch.device("cuda")
+    base = dataclasses.replace(get_config("starcoder2_3b"), remat=False)
+
+    # (a) parity: 2 layers, float32 weights and compute
+    cfg = dataclasses.replace(base, num_layers=2, compute_dtype="float32",
+                              attn_impl="pallas")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    params = transformer.init_params(gen, cfg)
+    prompt = torch.randint(0, cfg.vocab_size, (2, 512), generator=gen,
+                           device=dev, dtype=torch.int32)
+    tol = 1e-4      # float32 logits; only the attention's sums differ
+    with torch.no_grad():
+        fa.flash_attention.launches = 0
+        got, _ = transformer.forward(params, prompt, cfg)
+        flash_fwd = fa.flash_attention.launches
+        want, _ = transformer.forward(
+            params, prompt, dataclasses.replace(cfg, attn_impl="xla"))
+        err = (got - want).abs().max().item()
+        if not torch.allclose(got, want, rtol=tol, atol=tol):
+            raise AssertionError(f"forward logits, pallas vs xla: max |err| "
+                                 f"{err} > tol {tol}")
+        fa.flash_attention.launches = da.decode_attention.launches = 0
+        out = sampling.generate(params, prompt, cfg, max_new_tokens=16)
+        flash_gen = fa.flash_attention.launches
+        decode_gen = da.decode_attention.launches
+        seq, ties = prompt, 0
+        for i in range(16):
+            logits, _ = transformer.forward(params, seq, cfg)
+            last = logits[:, -1]
+            nxt = torch.argmax(last, -1).to(torch.int32)
+            for row in torch.nonzero(out[:, i] != nxt).flatten().tolist():
+                # only a tie within float32 noise may break another way
+                top2 = torch.topk(last[row], 2).values
+                if (top2[0] - top2[1]).item() > 1e-4:
+                    raise AssertionError(
+                        f"greedy token {i} of row {row}: generate gave "
+                        f"{int(out[row, i])}, teacher forcing {int(nxt[row])}")
+                ties += 1
+            seq = torch.cat([seq, out[:, i:i + 1]], dim=1)
+    summary_a = {"phase": "8a parity, 2 layers fp32", "forward_max_abs_err":
+                 err, "tol": tol, "generated": list(out.shape),
+                 "ties": ties, "flash_launches_forward": flash_fwd,
+                 "flash_launches_generate": flash_gen,
+                 "decode_launches_generate": decode_gen}
+    print(json.dumps(summary_a), flush=True)
+    if not (flash_fwd == flash_gen == cfg.num_layers
+            and decode_gen == cfg.num_layers * 15):
+        raise AssertionError(f"launch counts {summary_a} != {cfg.num_layers} "
+                             f"flash and {cfg.num_layers * 15} decode")
+    del params, got, want
+    torch.cuda.empty_cache()
+
+    # (b) the whole model: 30 layers, bf16 weights and compute
+    cfg = dataclasses.replace(base, param_dtype="bfloat16",
+                              attn_impl="pallas")
+    params = transformer.init_params(
+        torch.Generator(device=dev).manual_seed(4), cfg)
+    nbytes = sum(t.numel() * t.element_size()
+                 for t in flatten_params(params).values())
+    prompt = torch.randint(0, cfg.vocab_size, (1, 4096), device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(5),
+                           dtype=torch.int32)
+    width, steps = 4096 + 32, 32
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+
+    def decode_loop(logits, cache, n):
+        tok = torch.argmax(logits, -1).to(torch.int32)
+        for i in range(n):
+            logits, cache = transformer.decode_step(params, tok[:, None],
+                                                    4096 + i, cache, cfg)
+            tok = torch.argmax(logits, -1).to(torch.int32)
+        return logits
+
+    with torch.no_grad():
+        transformer.prefill(params, prompt, cfg, width)        # warm
+        torch.cuda.synchronize()
+        fa.flash_attention.launches = da.decode_attention.launches = 0
+        start.record()
+        logits, cache = transformer.prefill(params, prompt, cfg, width)
+        end.record()
+        end.synchronize()
+        prefill_ms = start.elapsed_time(end)
+        flash_prefill = fa.flash_attention.launches
+        start.record()
+        last = decode_loop(logits, cache, steps)
+        end.record()
+        end.synchronize()
+        token_ms = start.elapsed_time(end) / steps
+        decode_steps = da.decode_attention.launches
+        if not torch.isfinite(last.float()).all():
+            raise AssertionError("non-finite logits after 32 decode steps")
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            transformer.prefill(params, prompt, cfg, width)
+            torch.cuda.synchronize()
+        pre_split, pre_other = kernel_split(prof, ("flash_bf16_kernel",))
+        logits, cache = transformer.prefill(params, prompt, cfg, width)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            decode_loop(logits, cache, 8)
+            torch.cuda.synchronize()
+        dec_split, _ = kernel_split(prof, ("decode_attention_kernel",
+                                           "combine_kernel"))
+        dec_split = {k: v / 8 for k, v in dec_split.items()}
+    summary_b = {"phase": "8b starcoder2-3b, 30 layers bf16",
+                 "weights_gb": nbytes / 1e9, "prompt": 4096,
+                 "prefill_ms": prefill_ms, "decode_ms_per_token": token_ms,
+                 "flash_launches_prefill": flash_prefill,
+                 "decode_launches_32_steps": decode_steps,
+                 "prefill_device_ms_by_kernel": pre_split,
+                 "prefill_other_top_ms": pre_other,
+                 "decode_step_device_ms_by_kernel": dec_split,
+                 "prefill_flash_share": pre_split["flash_bf16_kernel"]
+                 / max(sum(pre_split.values()), 1e-9),
+                 "decode_attention_share": (
+                     dec_split["decode_attention_kernel"]
+                     + dec_split["combine_kernel"])
+                 / max(sum(dec_split.values()), 1e-9)}
+    print(json.dumps(summary_b), flush=True)
+    if flash_prefill != cfg.num_layers or \
+            decode_steps != cfg.num_layers * steps:
+        raise AssertionError(f"launch counts {summary_b} != "
+                             f"{cfg.num_layers} flash per prefill and "
+                             f"{cfg.num_layers * steps} decode")
+    del params, cache, logits
+    torch.cuda.empty_cache()
+    return summary_a, summary_b
+
+
+def lm_router_phase(fa, layers: int = 2):
+    """Phase 9: the LM router at full width, depth cut to ``layers``; every
+    prompt completes, flash launches = layers x expert forwards, and every
+    served forward's tokens equal the plain-torch path (``attn_impl="xla"``)
+    on the same padded batch."""
+    import shutil
+
+    from repro_torch.core import COSERVE, SAMBA_PARALLEL, run_real
+    from repro_torch.launch import lm_coe_router as router
+
+    cfg = router.lm_config("full", layers)
+    rng = np.random.RandomState(0)
+    store, lines, launches = None, [], 0
+    served = []        # (expert id, padded tokens, served argmax), on the host
+    try:
+        for policy in (COSERVE, SAMBA_PARALLEL):
+            t0 = time.perf_counter()
+            system, _ = router.build_lm_system(cfg, policy, device="cuda",
+                                               store=store)
+            store = system.engine.store
+            built_s = time.perf_counter() - t0
+            engine = system.engine
+            lm_apply = engine.apply_fns["tiny_lm"]
+            execute, current = engine.execute, {}
+
+            def record_execute(ex, eid, batch, execute=execute,
+                               current=current):
+                current["eid"] = eid
+                return execute(ex, eid, batch)
+
+            def record_apply(params, tokens, lm_apply=lm_apply,
+                             current=current):
+                out = lm_apply(params, tokens)
+                served.append((current["eid"], tokens.cpu(), out.cpu()))
+                return out
+
+            engine.execute = record_execute
+            engine.apply_fns["tiny_lm"] = record_apply
+            reqs = router.make_requests(rng, cfg)
+            lm_apply.calls = 0
+            fa.flash_attention.launches = 0
+            m = run_real(system, reqs)
+            flash = fa.flash_attention.launches
+            calls = lm_apply.calls
+            launches += flash
+            line = {"policy": policy.name, "completed": m.completed,
+                    "requests": len(reqs), "expert_loads": m.switches,
+                    "makespan_s": m.makespan, "forwards": calls,
+                    "flash_launches": flash, "build_s": built_s,
+                    "layers": cfg.num_layers, "d_model": cfg.d_model}
+            print(json.dumps(line), flush=True)
+            lines.append(line)
+            if m.completed != len(reqs):
+                raise AssertionError(f"{m.completed} of {len(reqs)} prompts")
+            if not 0 < flash == cfg.num_layers * calls:
+                raise AssertionError(f"{flash} flash launches for {calls} "
+                                     f"forwards of {cfg.num_layers} layers")
+            del system, engine, record_execute, record_apply
+            gc.collect()       # the engine's device copies of the experts
+            torch.cuda.empty_cache()
+        lines.append(check_served(store, served, cfg))
+    finally:
+        if store is not None:
+            shutil.rmtree(store.root, ignore_errors=True)
+    return lines, launches
+
+
+def check_served(store, served, cfg):
+    """Every forward phase 9 served, run again on the same padded batch
+    through the kernel path and the plain-torch path: the last position's
+    logits of the two agree within the bf16 tolerance, the served tokens
+    are the kernel path's argmax, and they equal the plain path's argmax
+    but on rows whose top two logits lie within the two paths' difference
+    (a near-tie either path may break)."""
+    import dataclasses
+
+    from repro_torch.convert import nest_params
+    from repro_torch.models import transformer
+
+    tol = 5e-2          # bf16 compute: a few roundings of 2^-8 on logits ~1
+    plain_cfg = dataclasses.replace(cfg, attn_impl="xla")
+    worst, rows, ties = 0.0, 0, 0
+    for eid in sorted({e for e, _, _ in served}):
+        params = nest_params({k: v.to("cuda") for k, v in
+                              store.fetch(eid)[0].items()})
+        for e, tokens, out in served:
+            if e != eid:
+                continue
+            x = tokens.cuda()
+            with torch.no_grad():
+                kern = transformer.forward(params, x, cfg,
+                                           mode="eval")[0][:, -1].float()
+                plain = transformer.forward(params, x, plain_cfg,
+                                            mode="eval")[0][:, -1].float()
+            diff = (kern - plain).abs()
+            worst = max(worst, diff.max().item())
+            if not torch.allclose(kern, plain, rtol=tol, atol=tol):
+                raise AssertionError(
+                    f"{eid}: last-position logits, kernel vs plain path, "
+                    f"max |err| {diff.max().item()} > tol {tol}")
+            served_tok = out.to("cuda", torch.long)
+            if not torch.equal(served_tok, torch.argmax(kern, -1)):
+                raise AssertionError(f"{eid}: served tokens "
+                                     f"{out.tolist()} are not the kernel "
+                                     "path's argmax on the same batch")
+            want = torch.argmax(plain, -1)
+            top2 = torch.topk(plain, 2, dim=-1).values
+            gap = top2[:, 0] - top2[:, 1]
+            for row in torch.nonzero(served_tok != want).flatten().tolist():
+                if gap[row].item() > 2 * diff[row].max().item():
+                    raise AssertionError(
+                        f"{eid} row {row}: served token "
+                        f"{int(served_tok[row])}, plain path "
+                        f"{int(want[row])} (top-2 gap {gap[row].item()})")
+                ties += 1
+            rows += x.shape[0]
+        del params
+        torch.cuda.empty_cache()
+    line = {"check": "served vs plain path", "forwards": len(served),
+            "rows": rows, "near_ties": ties, "logits_max_abs_err": worst,
+            "tol": tol}
+    print(json.dumps(line), flush=True)
+    return line
+
+
+def kernel_entry(name, source, replaces, launches, line) -> dict:
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": line["max_abs_err"], "ms": line["ms"],
+            "plain_ms": line["plain_ms"], "bound_ms": line["bound_ms"],
+            "bound_by": line["bound_by"], "library_ms": line["library_ms"],
+            "shape": line["shape"]}
+
+
 def main() -> int:
     t_start = time.perf_counter()
     phase("1 environment")
@@ -283,24 +738,19 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
     from repro_torch.launch import serve
 
     phase("2 build")
-    t0 = time.perf_counter()
-    lib = da.build_library()
-    print(f"built {os.path.relpath(lib, ROOT)} in "
-          f"{time.perf_counter() - t0:.1f} s")
-    for ln in lib.with_suffix(".log").read_text().splitlines():
-        if "registers" in ln or "spill" in ln or "Compiling" in ln:
-            print("  ptxas:", ln.strip())
+    build_all()
 
-    phase("3 kernel vs plain")
+    phase("3 decode kernel vs plain")
     lines = kernel_vs_plain(da, ref)
 
-    phase("4 serving with decode (the main path)")
-    launches = serve_decode(serve, da, ["--mode", "real", "--decode",
-                                        "--requests", "40", "--quiet"])
+    phase("4 serving with decode (the first slice's main path)")
+    decode_launches = serve_decode(serve, da, [
+        "--mode", "real", "--decode", "--requests", "40", "--quiet"])
 
     phase("5 serving with decode, phi4-mini ring geometry")
     serve_decode(serve, da, ["--mode", "real", "--decode", "--requests",
@@ -318,16 +768,24 @@ def main() -> int:
             raise AssertionError(f"{argv}: {result['completed']} of {want} "
                                  "requests completed")
 
+    phase("7 flash kernel vs plain")
+    flash_lines = flash_vs_plain(fa, ref)
+
+    phase("8 the transformer at StarCoder2-3B's full width")
+    transformer_phases(fa, da)
+
+    phase("9 LM-expert router, full width, 2 layers (this slice's main path)")
+    _, flash_launches = lm_router_phase(fa)
+
     rep = next(ln for ln in lines if ln["reported"])
+    flash_rep = next(ln for ln in flash_lines if ln["reported"])
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(f"card: {card_line()}")
-    print(json.dumps({"kernels": [{
-        "name": "decode_attention", "route": "cuda", "source": KERNEL_SOURCE,
-        "replaces": REPLACES, "launches": launches,
-        "max_abs_err": rep["max_abs_err"], "ms": rep["ms"],
-        "plain_ms": rep["plain_ms"], "bound_ms": rep["bound_ms"],
-        "bound_by": rep["bound_by"], "library_ms": rep["library_ms"],
-        "shape": rep["shape"]}]}))
+    print(json.dumps({"kernels": [
+        kernel_entry("decode_attention", DECODE_SOURCE, DECODE_REPLACES,
+                     decode_launches, rep),
+        kernel_entry("flash_attention", FLASH_SOURCE, FLASH_REPLACES,
+                     flash_launches, flash_rep)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -33,6 +33,7 @@ from repro_torch.kernels.ops import decode_attention_op
 from repro_torch.memory import MemoryHierarchy, TierSpec
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+_BF16_SUFFIX = "@bfloat16"     # disk-tier name of a bfloat16 tensor's bits
 
 
 def resolve_device(device) -> torch.device:
@@ -56,6 +57,18 @@ def synchronize(device: torch.device) -> None:
     this would measure only the launch."""
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def bucket_pad(x: np.ndarray) -> np.ndarray:
+    """Zero-pad the batch dim to a power-of-two bucket, as the reference
+    does (one compiled shape per bucket there; here the same batch
+    shapes)."""
+    n = x.shape[0]
+    bucket = 1 << (n - 1).bit_length()
+    if bucket == n:
+        return x
+    return np.concatenate([x, np.zeros((bucket - n,) + x.shape[1:],
+                                       x.dtype)], axis=0)
 
 
 class SimEngine:
@@ -183,20 +196,35 @@ class HostStore:
         self.host[expert_id] = self._host_tensors(params)
 
     def put_disk(self, expert_id: str, params: Dict[str, Any]):
+        """numpy has no bfloat16: such a tensor is stored as its uint16 bits
+        under ``<name>@bfloat16`` and viewed back on ``fetch``."""
         if not self.root:
             raise ValueError("HostStore needs a root dir for the disk tier")
         os.makedirs(self.root, exist_ok=True)
         path = os.path.join(self.root, f"{expert_id}.npz")
-        np.savez(path, **{name: torch.as_tensor(a).cpu().numpy()
-                          for name, a in params.items()})
+        arrays = {}
+        for name, a in params.items():
+            t = torch.as_tensor(a).cpu()
+            if t.dtype == torch.bfloat16:
+                arrays[name + _BF16_SUFFIX] = t.view(torch.uint16).numpy()
+            else:
+                arrays[name] = t.numpy()
+        np.savez(path, **arrays)
         self.disk[expert_id] = path
 
     def fetch(self, expert_id: str) -> Tuple[Dict[str, torch.Tensor], str]:
         """Returns (host-side params, source tier)."""
         if expert_id in self.host:
             return self.host[expert_id], "host"
+        params = {}
         with np.load(self.disk[expert_id]) as z:
-            params = self._host_tensors({name: z[name] for name in z.files})
+            for key in z.files:
+                if key.endswith(_BF16_SUFFIX):
+                    params[key[:-len(_BF16_SUFFIX)]] = torch.from_numpy(
+                        z[key]).view(torch.bfloat16)
+                else:
+                    params[key] = z[key]
+        params = self._host_tensors(params)
         self.host[expert_id] = params          # disk read populates host cache
         return params, "disk"
 
@@ -431,13 +459,8 @@ class RealEngine:
         make_batch = payload["make_batch"]
         interpret = payload.get("interpret", lambda o: list(o))
         x = make_batch(batch)
-        # pad the batch dim to a power-of-two bucket, as the reference does
-        # (one compiled shape per bucket there; here the same batch shapes)
         n = x.shape[0]
-        bucket = 1 << (n - 1).bit_length()
-        if bucket != n:
-            pad = np.zeros((bucket - n,) + x.shape[1:], x.dtype)
-            x = np.concatenate([x, pad], axis=0)
+        x = bucket_pad(x)
         # the batch goes where the params are: the device, or host DRAM for
         # a host co-executed expert
         where = next(iter(params.values())).device

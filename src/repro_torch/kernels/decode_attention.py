@@ -4,29 +4,22 @@
 The kernel replaces the Pallas TPU kernel
 ``repro.kernels.decode_attention.decode_attention``. It is compiled with
 ``nvcc`` for ``sm_90a`` into a shared library with a plain C interface at
-first use, under ``build/torch_kernels/`` of the checkout, keyed by a hash of
-its source, and loaded with ``ctypes``. A tensor on the CPU takes the plain
-version (``ref.decode_attention_ref``); a CUDA tensor launches the kernel or
-raises. ``decode_attention.launches`` counts the launches.
+first use (``build.load_library``) and loaded with ``ctypes``. A tensor on
+the CPU takes the plain version (``ref.decode_attention_ref``); a CUDA
+tensor launches the kernel or raises. ``decode_attention.launches`` counts
+the launches.
 """
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import threading
 from pathlib import Path
 
 import torch
 
+from repro_torch.kernels.build import load_library
 from repro_torch.kernels.ref import decode_attention_ref
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "decode_attention.cu"
-BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # (q dtype, kv dtype) pairs the kernel takes; the output has q's dtype
 DTYPES = {(torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
@@ -34,65 +27,17 @@ DTYPES = {(torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
 MAX_HEAD_DIM = 256
 MAX_GROUP_ELEMS = 4096        # G * D: 256 threads x 16 accumulators
 
-_lib = None
-_lib_lock = threading.Lock()
 
-
-def find_nvcc() -> str:
-    """``nvcc`` on PATH, then under ``$CUDA_HOME/bin``, then in
-    ``/usr/local/cuda/bin``; raises if none has it."""
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    for root in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
-        if root and os.access(os.path.join(root, "bin", "nvcc"), os.X_OK):
-            return os.path.join(root, "bin", "nvcc")
-    raise RuntimeError("nvcc not found on PATH, under $CUDA_HOME/bin or in "
-                       "/usr/local/cuda/bin: the decode_attention kernel "
-                       "cannot be built")
-
-
-def library_path() -> Path:
-    digest = hashlib.sha256(SOURCE.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"decode_attention-{digest}.so"
-
-
-def build_library() -> Path:
-    """Compile the kernel's shared library unless this source's build exists;
-    returns its path. The compiler's output (with ``-Xptxas -v``: registers,
-    shared memory and spills) is kept beside it as ``<name>.log``."""
-    path = library_path()
-    if path.exists():
-        return path
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
-    proc = subprocess.run([find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                           str(SOURCE)], capture_output=True, text=True)
-    path.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed to build {SOURCE.name} "
-                           f"(exit {proc.returncode}):\n{proc.stderr}")
-    os.replace(tmp, path)       # atomic: concurrent builders race safely
-    return path
-
-
-def _library():
-    global _lib
-    with _lib_lock:
-        if _lib is None:
-            lib = ctypes.CDLL(str(build_library()))
-            fn = lib.coserve_decode_attention
-            fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
-                           + [ctypes.c_longlong] + [ctypes.c_int] * 4
-                           + [ctypes.c_void_p])
-            fn.restype = ctypes.c_int
-            lib.coserve_decode_attention_splits.argtypes = [ctypes.c_int] * 4
-            lib.coserve_decode_attention_splits.restype = ctypes.c_int
-            lib.coserve_cuda_error_string.argtypes = [ctypes.c_int]
-            lib.coserve_cuda_error_string.restype = ctypes.c_char_p
-            _lib = lib
-        return _lib
+def _bind(lib):
+    fn = lib.coserve_decode_attention
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+                   + [ctypes.c_longlong] + [ctypes.c_int] * 4
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    lib.coserve_decode_attention_splits.argtypes = [ctypes.c_int] * 4
+    lib.coserve_decode_attention_splits.restype = ctypes.c_int
+    lib.coserve_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.coserve_cuda_error_string.restype = ctypes.c_char_p
 
 
 def _check(q, k_cache, v_cache, window: int):
@@ -134,7 +79,7 @@ def decode_attention(q, k_cache, v_cache, pos, *, window: int = 0):
     if q.device.type == "cpu":
         return decode_attention_ref(q, k_cache, v_cache, pos, window=window)
     _check(q, k_cache, v_cache, window)
-    lib = _library()
+    lib = load_library(SOURCE, _bind)
     b, h, d = q.shape
     hkv, w = k_cache.shape[1], k_cache.shape[2]
     g = h // hkv

@@ -1,0 +1,97 @@
+"""Forward (prefill) GQA attention: the hand-written Hopper kernel
+(``csrc/flash_attention.cu``) and its wrapper.
+
+The kernel replaces the Pallas TPU kernel
+``repro.kernels.flash_attention.flash_attention``. It is compiled with
+``nvcc`` for ``sm_90a`` into a shared library with a plain C interface at
+first use (``build.load_library``) and loaded with ``ctypes``. A tensor on
+the CPU takes the plain version (``ref.flash_attention_ref``); a CUDA tensor
+launches the kernel or raises. ``flash_attention.launches`` counts the
+launches.
+"""
+from __future__ import annotations
+
+import ctypes
+from pathlib import Path
+
+import torch
+
+from repro_torch.kernels.build import load_library
+from repro_torch.kernels.ref import flash_attention_ref
+
+SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
+DTYPES = (torch.float32, torch.bfloat16)
+HEAD_DIMS = (32, 64, 96, 128)
+
+
+def _bind(lib):
+    fn = lib.coserve_flash_attention
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+                   + [ctypes.c_longlong] * 12 + [ctypes.c_int] * 3
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    lib.coserve_flash_error_string.argtypes = [ctypes.c_int]
+    lib.coserve_flash_error_string.restype = ctypes.c_char_p
+
+
+def _check(q, k, v, window: int):
+    if not (q.is_cuda and k.device == q.device and v.device == q.device):
+        raise ValueError("flash_attention: q, k and v must lie on one CUDA "
+                         f"device, got {q.device}, {k.device}, {v.device}")
+    if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError("flash_attention takes q, k, v all float32 or all "
+                        f"bfloat16, got {q.dtype}/{k.dtype}/{v.dtype}")
+    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
+        raise ValueError("flash_attention: q [B,H,S,D], k and v [B,Hkv,T,D]; "
+                         f"got {tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    b, h, s, d = q.shape
+    kb, hkv, t, kd = k.shape
+    if kb != b or kd != d or hkv == 0 or h % hkv or s == 0 or t < s:
+        raise ValueError(f"flash_attention: q {tuple(q.shape)} does not fit "
+                         f"k, v {tuple(k.shape)} (needs T >= S > 0)")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"flash_attention: head_dim {d} must be one of "
+                         f"{HEAD_DIMS}")
+    vec = 16 // q.element_size()      # the kernel reads 16-byte vectors
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        if x.stride(3) != 1 or any(st % vec for st in x.stride()[:3]) \
+                or x.data_ptr() % 16:
+            raise ValueError(
+                f"flash_attention: {name} needs a contiguous last dimension, "
+                f"strides that are multiples of {vec} elements and a 16-byte "
+                f"aligned start; got strides {x.stride()}")
+    if window < 0:
+        raise ValueError(f"flash_attention: window {window} < 0")
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
+    """q: [B,H,S,D]; k, v: [B,Hkv,T,D], T >= S -> [B,H,S,D] in q's dtype.
+
+    On the card the result is a [B,H,S,D] view of a [B,S,H,D] buffer, so a
+    caller that transposes it back to [B,S,H,D] gets a contiguous tensor
+    without a copy."""
+    if q.device.type == "cpu":
+        return flash_attention_ref(q, k, v, causal=causal, window=window)
+    _check(q, k, v, window)
+    lib = load_library(SOURCE, _bind)
+    b, h, s, d = q.shape
+    hkv, t = k.shape[1], k.shape[2]
+    out = torch.empty((b, s, h, d), dtype=q.dtype,
+                      device=q.device).transpose(1, 2)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = lib.coserve_flash_attention(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h,
+            hkv, s, t, d, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+            *out.stride()[:3], int(bool(causal)), int(window),
+            int(q.dtype == torch.bfloat16), stream)
+    if rc != 0:
+        raise RuntimeError(
+            f"flash_attention kernel launch failed: CUDA error {rc} "
+            f"({lib.coserve_flash_error_string(rc).decode()})")
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0

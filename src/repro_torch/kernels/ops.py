@@ -6,6 +6,12 @@ version. There is no other path and no fallback.
 from __future__ import annotations
 
 from repro_torch.kernels.decode_attention import decode_attention
+from repro_torch.kernels.flash_attention import flash_attention
+
+
+def flash_attention_op(q, k, v, *, causal: bool = True, window: int = 0):
+    """q: [B,H,S,D]; k, v: [B,Hkv,T,D]."""
+    return flash_attention(q, k, v, causal=causal, window=window)
 
 
 def decode_attention_op(q, k_cache, v_cache, pos, *, window: int = 0):

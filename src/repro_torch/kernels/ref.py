@@ -8,6 +8,29 @@ import torch
 NEG_INF = -1e30
 
 
+def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0):
+    """Naive attention. q: [B,H,S,D]; k, v: [B,Hkv,T,D] with T >= S; GQA
+    by repetition (query head h reads kv head h // (H // Hkv)). Causality
+    is right-aligned: query row i sits at position T - S + i."""
+    b, h, s, d = q.shape
+    hkv, t = k.shape[1], k.shape[2]
+    g = h // hkv
+    kf = k.float().repeat_interleave(g, dim=1)
+    vf = v.float().repeat_interleave(g, dim=1)
+    scores = torch.einsum("bhsd,bhtd->bhst", q.float(), kf) / (d ** 0.5)
+    q_pos = torch.arange(s, device=q.device)[:, None] + (t - s)
+    k_pos = torch.arange(t, device=q.device)[None, :]
+    mask = torch.ones((s, t), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= q_pos >= k_pos
+    if window:
+        mask &= (q_pos - k_pos) < window
+    scores = scores.masked_fill(~mask, NEG_INF)
+    p = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhst,bhtd->bhsd", p, vf)
+    return out.to(q.dtype)
+
+
 def decode_attention_ref(q, k_cache, v_cache, pos, *, window: int = 0):
     """Single-token GQA attention vs a ring cache.
 

@@ -1,0 +1,216 @@
+"""Decoder-only LM stack for the dense families: the port of
+``repro.models.transformer``.
+
+Parameters keep the reference's nesting (``{"embed", "slots": {"slot{i}":
+...}, "final_norm", ["lm_head"]}``), with each period-slot's parameters
+stacked along a leading periods axis; where the reference scans over that
+axis, the port runs a Python loop. A ``moe`` or ``mamba`` slot raises
+``NotImplementedError``: those families come with later slices of the port.
+
+Entry points: ``forward`` (full sequence), ``prefill`` (build a ring KV
+cache + last-token logits), ``decode_step`` (one token against the cache,
+which it updates in place).
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.models import layers as L
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.kvcache import SSM_ITEM, init_cache
+
+MOE_ITEM = "ROADMAP Queue 1 item 3 (MoE, encoder-decoder and training)"
+
+
+def check_ported(cfg: ModelConfig) -> None:
+    """Raise for a family whose layers the port does not have yet."""
+    for slot in cfg.block_pattern():
+        if slot.mixer != "attn":
+            raise NotImplementedError(
+                f"{cfg.name}: {slot.mixer} layers are not ported yet; see "
+                f"{SSM_ITEM}")
+        if slot.ffn == "moe":
+            raise NotImplementedError(
+                f"{cfg.name}: MoE layers are not ported yet; see {MOE_ITEM}")
+    if cfg.is_encoder_decoder:
+        raise NotImplementedError(
+            f"{cfg.name}: encoder-decoder models are not ported yet; see "
+            f"{MOE_ITEM}")
+
+
+# --------------------------------------------------------------------------- #
+# init
+# --------------------------------------------------------------------------- #
+
+def _init_slot(gen, cfg: ModelConfig, slot, dtype):
+    p = {"norm1": L.init_norm(cfg.d_model, cfg.norm_type, dtype, gen.device),
+         "attn": L.init_attention(gen, cfg, dtype)}
+    if slot.ffn is not None:
+        p["norm2"] = L.init_norm(cfg.d_model, cfg.norm_type, dtype,
+                                 gen.device)
+        p["mlp"] = L.init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.mlp_type, dtype)
+    return p
+
+
+def _stack(trees):
+    return {k: _stack([t[k] for t in trees]) if isinstance(v, dict)
+            else torch.stack([t[k] for t in trees])
+            for k, v in trees[0].items()}
+
+
+def init_params(gen: torch.Generator, cfg: ModelConfig):
+    """Parameter dict drawn from ``gen`` on its device; per-slot params
+    stacked along a leading periods axis."""
+    check_ported(cfg)
+    dtype = L.torch_dtype(cfg.param_dtype)
+    n = cfg.num_periods()
+    params = {
+        "embed": L.init_embedding(gen, cfg.vocab_size, cfg.d_model, dtype),
+        "slots": {f"slot{i}": _stack([_init_slot(gen, cfg, s, dtype)
+                                      for _ in range(n)])
+                  for i, s in enumerate(cfg.block_pattern())},
+        "final_norm": L.init_norm(cfg.d_model, cfg.norm_type, dtype,
+                                  gen.device),
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = L.init_embedding(gen, cfg.vocab_size,
+                                             cfg.d_model, dtype)
+    return params
+
+
+# --------------------------------------------------------------------------- #
+# block application
+# --------------------------------------------------------------------------- #
+
+def _period(tree, p: int):
+    """Period ``p``'s slice of a stacked dict (views, no copies)."""
+    return {k: _period(v, p) if isinstance(v, dict) else v[p]
+            for k, v in tree.items()}
+
+
+def _apply_slot(slot_params, x, cfg: ModelConfig, slot, positions, cdtype,
+                cache=None, pos=None):
+    """One layer: pre-norm attention + residual, then pre-norm FFN +
+    residual. Returns (x, new_cache)."""
+    h = L.apply_norm(x, slot_params["norm1"], cfg.norm_type, cfg.norm_eps)
+    kv = None if cache is None else (cache["k"], cache["v"])
+    out, new_kv = L.attention_block(slot_params["attn"], h, cfg, positions,
+                                    cache=kv, pos=pos, compute_dtype=cdtype)
+    x = x + out
+    if slot.ffn is not None:
+        h2 = L.apply_norm(x, slot_params["norm2"], cfg.norm_type,
+                          cfg.norm_eps)
+        x = x + L.mlp_block(slot_params["mlp"], h2, cfg.mlp_type, cdtype)
+    return x, new_kv
+
+
+def _default_positions(cfg: ModelConfig, batch, seq, device, offset=0):
+    pos = offset + torch.arange(seq, device=device)[None, :]
+    pos = pos.expand(batch, seq)
+    if cfg.mrope_sections:
+        return pos[None].expand(3, batch, seq)
+    return pos
+
+
+def _embed_input(params, tokens, input_embeds, cdtype):
+    if input_embeds is not None:
+        return input_embeds.to(cdtype)
+    return L.embed(params["embed"], tokens.long(), cdtype)
+
+
+def _head(params, x, cfg: ModelConfig, cdtype):
+    x = L.apply_norm(x, params["final_norm"], cfg.norm_type, cfg.norm_eps)
+    head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
+    return L.unembed(head, x, cfg.logical_vocab_size, cdtype)
+
+
+# --------------------------------------------------------------------------- #
+# forward (full sequence)
+# --------------------------------------------------------------------------- #
+
+def forward(params, tokens, cfg: ModelConfig, positions=None,
+            input_embeds=None, mode: str = "eval"):
+    """Full-sequence forward. Returns (logits [B,S,V], aux_loss); the dense
+    families have no auxiliary loss, so it is a float32 zero. ``mode`` is
+    kept for the reference's signature: rematerialisation is a training
+    matter and the port runs forward only."""
+    check_ported(cfg)
+    cdtype = L.torch_dtype(cfg.compute_dtype)
+    x = _embed_input(params, tokens, input_embeds, cdtype)
+    b, s = x.shape[:2]
+    if positions is None:
+        positions = _default_positions(cfg, b, s, x.device)
+    pattern = cfg.block_pattern()
+    for p in range(cfg.num_periods()):
+        sliced = _period(params["slots"], p)
+        for i, slot in enumerate(pattern):
+            x, _ = _apply_slot(sliced[f"slot{i}"], x, cfg, slot, positions,
+                               cdtype)
+    logits = _head(params, x, cfg, cdtype)
+    return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+# --------------------------------------------------------------------------- #
+# prefill
+# --------------------------------------------------------------------------- #
+
+def to_ring(kv_seg, width: int):
+    """Place a [B,S,Hkv,hd] KV segment into a heads-major [B,Hkv,W,hd] ring:
+    position j sits at slot j % W, so with S >= W the last W positions are
+    kept, rolled by S % W."""
+    s = kv_seg.shape[1]
+    k = kv_seg.transpose(1, 2)                        # [B,Hkv,S,hd]
+    if s >= width:
+        return torch.roll(k[:, :, s - width:], s % width, dims=2)
+    return torch.nn.functional.pad(k, (0, 0, 0, width - s))
+
+
+def prefill(params, tokens, cfg: ModelConfig, cache_width: int,
+            positions=None, input_embeds=None):
+    """Run the prompt, build a ring KV cache of ``cache_width`` slots.
+    Returns (last-token logits [B,V], cache)."""
+    check_ported(cfg)
+    cdtype = L.torch_dtype(cfg.compute_dtype)
+    x = _embed_input(params, tokens, input_embeds, cdtype)
+    b, s = x.shape[:2]
+    if positions is None:
+        positions = _default_positions(cfg, b, s, x.device)
+    pattern = cfg.block_pattern()
+    cache = init_cache(cfg, b, cache_width, device=x.device)
+    for p in range(cfg.num_periods()):
+        sliced = _period(params["slots"], p)
+        for i, slot in enumerate(pattern):
+            x, (k, v) = _apply_slot(sliced[f"slot{i}"], x, cfg, slot,
+                                    positions, cdtype)
+            entry = cache[f"slot{i}"]
+            entry["k"][p] = to_ring(k, cache_width)
+            entry["v"][p] = to_ring(v, cache_width)
+    logits = _head(params, x[:, -1:], cfg, cdtype)[:, 0]
+    return logits, cache
+
+
+# --------------------------------------------------------------------------- #
+# decode
+# --------------------------------------------------------------------------- #
+
+def decode_step(params, token, pos: int, cache, cfg: ModelConfig,
+                positions=None):
+    """One decode step. token: [B,1]; pos: absolute position (int). The
+    cache is updated IN PLACE (one row per layer at slot pos % W) and
+    returned. Returns (logits [B,V], cache)."""
+    check_ported(cfg)
+    cdtype = L.torch_dtype(cfg.compute_dtype)
+    x = _embed_input(params, token, None, cdtype)
+    b = x.shape[0]
+    if positions is None:
+        positions = _default_positions(cfg, b, 1, x.device, offset=pos)
+    pattern = cfg.block_pattern()
+    for p in range(cfg.num_periods()):
+        sliced = _period(params["slots"], p)
+        for i, slot in enumerate(pattern):
+            entry = cache[f"slot{i}"]
+            x, _ = _apply_slot(sliced[f"slot{i}"], x, cfg, slot, positions,
+                               cdtype, cache={"k": entry["k"][p],
+                                              "v": entry["v"][p]}, pos=pos)
+    logits = _head(params, x, cfg, cdtype)[:, 0]
+    return logits, cache

@@ -19,7 +19,9 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import build
 from repro_torch.kernels import decode_attention as da
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import decode_attention_ref
 
@@ -117,15 +119,23 @@ def test_neither_cpu_nor_cuda_raises():
 def test_missing_nvcc_raises(monkeypatch):
     monkeypatch.setenv("PATH", "")
     monkeypatch.delenv("CUDA_HOME", raising=False)
-    monkeypatch.setattr(da.os, "access", lambda *a: False)
+    monkeypatch.setattr(build.os, "access", lambda *a: False)
     with pytest.raises(RuntimeError, match="nvcc not found"):
-        da.find_nvcc()
+        build.find_nvcc()
+    for source in (da.SOURCE, fa.SOURCE):     # both kernels build through it
+        if not build.library_path(source).exists():
+            with pytest.raises(RuntimeError, match="nvcc not found"):
+                build.build_library(source)
 
 
 def test_library_is_keyed_by_its_source():
-    path = da.library_path()
-    assert path.parent == da.BUILD_DIR and path.suffix == ".so"
-    assert path == da.library_path()
+    paths = {build.library_path(s) for s in (da.SOURCE, fa.SOURCE)}
+    assert len(paths) == 2
+    for source in (da.SOURCE, fa.SOURCE):
+        path = build.library_path(source)
+        assert path.parent == build.BUILD_DIR and path.suffix == ".so"
+        assert path.name.startswith(source.stem + "-")
+        assert path == build.library_path(source)
 
 
 # --------------------------------------------------------------------------- #

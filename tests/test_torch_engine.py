@@ -66,6 +66,40 @@ def test_host_store_disk_round_trip(tmp_path):
         HostStore().put_disk("e2", params)
 
 
+def test_host_store_disk_round_trips_bf16_bit_for_bit(tmp_path):
+    rng = np.random.default_rng(1)
+    w = torch.from_numpy(rng.standard_normal((16, 8)).astype(np.float32))
+    params = {"attn.wq": w.to(torch.bfloat16),
+              "norm.scale": torch.tensor([1.0, -0.0, float("inf"), 3e38]
+                                         ).to(torch.bfloat16),
+              "b": torch.zeros(4)}
+    store = HostStore(root=str(tmp_path))
+    store.put_disk("lm", params)
+    got, tier = store.fetch("lm")
+    assert tier == "disk" and set(got) == set(params)
+    for name, t in params.items():
+        assert got[name].dtype == t.dtype and got[name].shape == t.shape
+        if t.dtype == torch.bfloat16:
+            assert torch.equal(got[name].view(torch.uint16),
+                               t.view(torch.uint16))
+        else:
+            assert torch.equal(got[name], t)
+
+
+def test_host_store_keeps_fp32_experts_as_before(tmp_path):
+    """A float32 expert's file holds its arrays under their own names, as
+    it did before bfloat16 experts were stored."""
+    params = {"w1": np.arange(6, dtype=np.float32).reshape(2, 3),
+              "b1": np.ones(3, np.float32)}
+    store = HostStore(root=str(tmp_path))
+    store.put_disk("e0", params)
+    with np.load(tmp_path / "e0.npz") as z:
+        assert sorted(z.files) == ["b1", "w1"]
+        for name, a in params.items():
+            assert z[name].dtype == np.float32
+            np.testing.assert_array_equal(z[name], a)
+
+
 def _single_expert_engine(params):
     payload = {"make_batch": lambda reqs: np.stack([r.data["x"]
                                                     for r in reqs]),

@@ -1,0 +1,203 @@
+"""The port's flash attention against the JAX package's.
+
+On the CPU the port's ``flash_attention_ref`` is held against the Pallas
+``flash_attention`` (interpret mode, as ``tests/test_kernels.py`` runs it)
+and against ``repro.kernels.ref.flash_attention_ref``, on the sweeps of that
+file: MHA, GQA groups 2 and 4, MQA with a cached prefix (T > S), head_dim
+128, sliding windows 32/64/128, non-causal, and S not a multiple of the
+block. Inputs come from numpy seeds. Tolerances: fp32 2e-5 (the Pallas
+kernel scales q before the dot, the references divide the scores), bf16
+2e-2 (the output is rounded to bf16), as in ``tests/test_kernels.py``.
+
+The tests marked ``cuda`` hold the hand-written kernel against its plain
+version on the card and skip without one. They need no JAX, which the
+card's machine does not have: there, run
+``python -m pytest -q -m cuda tests/test_torch_flash_attention.py``.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import ops
+from repro_torch.kernels.ref import flash_attention_ref
+
+TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+TORCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def make_inputs(seed, b, h, hkv, s, t, d):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((b, h, s, d)).astype(np.float32),
+            rng.standard_normal((b, hkv, t, d)).astype(np.float32),
+            rng.standard_normal((b, hkv, t, d)).astype(np.float32))
+
+
+def check(seed, b, h, hkv, s, t, d, *, dtype="float32", causal=True,
+          window=0, block=128):
+    """The port's plain version against the Pallas kernel (interpret mode)
+    and the reference's oracle, on the same numbers."""
+    import jax.numpy as jnp
+
+    from repro.kernels import ref as jref
+    from repro.kernels.flash_attention import flash_attention as jax_kernel
+
+    arrays = make_inputs(seed, b, h, hkv, s, t, d)
+    jq, jk, jv = (jnp.asarray(a).astype(getattr(jnp, dtype)) for a in arrays)
+    tq, tk, tv = (torch.from_numpy(a).to(TORCH_DTYPES[dtype])
+                  for a in arrays)
+    got = flash_attention_ref(tq, tk, tv, causal=causal, window=window)
+    assert got.dtype == tq.dtype and got.shape == (b, h, s, d)
+    got = got.float().numpy()
+    tol = TOL[dtype]
+    for want in (jax_kernel(jq, jk, jv, causal=causal, window=window,
+                            block_q=block, block_k=block, interpret=True),
+                 jref.flash_attention_ref(jq, jk, jv, causal=causal,
+                                          window=window)):
+        np.testing.assert_allclose(got, np.asarray(want, np.float32),
+                                   rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,h,hkv,s,t,d", [
+    (1, 4, 4, 128, 128, 64),     # MHA, square
+    (2, 4, 2, 128, 128, 64),     # GQA group 2
+    (1, 8, 2, 256, 256, 64),     # GQA group 4, two q blocks
+    (1, 4, 1, 128, 256, 64),     # MQA, cached prefix (t > s)
+    (2, 4, 4, 128, 128, 128),    # head_dim 128
+])
+def test_causal_sweep(b, h, hkv, s, t, d, dtype):
+    check(b * 100 + h * 10 + hkv + s, b, h, hkv, s, t, d, dtype=dtype)
+
+
+@pytest.mark.parametrize("window", [32, 64, 128])
+def test_sliding_window(window):
+    check(window, 1, 4, 4, 256, 256, 64, window=window)
+
+
+def test_noncausal():
+    check(3, 1, 2, 2, 128, 128, 64, causal=False)
+
+
+@pytest.mark.parametrize("s,t,window", [(100, 100, 0), (70, 150, 0),
+                                        (100, 100, 40)])
+def test_sequence_not_a_multiple_of_the_block(s, t, window):
+    check(s + t, 2, 4, 2, s, t, 32, window=window, block=64)
+
+
+def test_cpu_tensor_takes_the_plain_version_and_launches_nothing():
+    q, k, v = (torch.from_numpy(a) for a in make_inputs(0, 1, 4, 2, 8, 8, 32))
+    before = fa.flash_attention.launches
+    out = ops.flash_attention_op(q, k, v, window=3)
+    torch.testing.assert_close(
+        out, flash_attention_ref(q, k, v, window=3), rtol=0, atol=0)
+    assert fa.flash_attention.launches == before
+
+
+def test_neither_cpu_nor_cuda_raises():
+    q = torch.empty((1, 4, 8, 64), device="meta")
+    k = torch.empty((1, 2, 8, 64), device="meta")
+    with pytest.raises(ValueError, match="CUDA device"):
+        fa.flash_attention(q, k, k)
+
+
+# --------------------------------------------------------------------------- #
+# on the card
+# --------------------------------------------------------------------------- #
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,h,hkv,s,t,d,causal,window", [
+    (1, 4, 4, 128, 128, 64, True, 0),
+    (2, 8, 2, 200, 200, 32, True, 0),       # ragged S, group 4, D 32
+    (1, 6, 2, 64, 300, 96, True, 0),        # cached prefix, D 96
+    (2, 24, 2, 333, 517, 128, True, 0),     # ragged, T > S, starcoder2 heads
+    (1, 4, 1, 256, 256, 128, True, 50),     # window inside a tile
+    (1, 4, 2, 300, 300, 64, True, 128),     # window on tile edges
+    (1, 4, 4, 130, 130, 64, False, 0),      # non-causal
+    (1, 2, 2, 70, 190, 32, False, 33),      # non-causal with a window
+    (1, 2, 1, 1, 1, 32, True, 0),           # one token
+])
+def test_kernel_matches_plain_version(cuda, dtype, b, h, hkv, s, t, d,
+                                      causal, window):
+    q, k, v = (torch.from_numpy(a).to(cuda, TORCH_DTYPES[dtype])
+               for a in make_inputs(s + t + d, b, h, hkv, s, t, d))
+    before = fa.flash_attention.launches
+    got = fa.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == before + 1
+    want = flash_attention_ref(q, k, v, causal=causal, window=window)
+    tol = TOL[dtype]
+    assert got.shape == want.shape and got.dtype == want.dtype
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+def test_kernel_reads_transposed_views(cuda):
+    """The transformer hands the kernel [B,S,H,D] tensors transposed to
+    [B,H,S,D]; the result transposed back is contiguous."""
+    rng = np.random.default_rng(5)
+    q = torch.from_numpy(rng.standard_normal((2, 100, 8, 64))).to(
+        cuda, torch.bfloat16)
+    kv = torch.from_numpy(rng.standard_normal((2, 100, 2, 64))).to(
+        cuda, torch.bfloat16)
+    got = fa.flash_attention(q.transpose(1, 2), kv.transpose(1, 2),
+                             kv.transpose(1, 2))
+    assert got.transpose(1, 2).is_contiguous()
+    want = flash_attention_ref(q.transpose(1, 2).contiguous(),
+                               kv.transpose(1, 2).contiguous(),
+                               kv.transpose(1, 2).contiguous())
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                               atol=2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 2, 4, 8])
+def test_kernel_at_the_lm_router_batches(cuda, b):
+    """The LM router's forwards at StarCoder2-3B's width: bf16, 24/2 heads
+    of 128, 16-token prompts (one partial q tile, one key tile mostly past
+    T), handed over as transposed views."""
+    rng = np.random.default_rng(b)
+    q, k, v = (torch.from_numpy(rng.standard_normal((b, 16, h, 128))).to(
+        cuda, torch.bfloat16).transpose(1, 2) for h in (24, 2, 2))
+    got = fa.flash_attention(q, k, v)
+    want = flash_attention_ref(q, k, v)
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                               atol=2e-2)
+
+
+@pytest.mark.cuda
+def test_cuda_path_never_calls_the_plain_version(cuda, monkeypatch):
+    def refuse(*a, **k):
+        raise AssertionError("the plain version ran on a CUDA tensor")
+
+    monkeypatch.setattr(fa, "flash_attention_ref", refuse)
+    q, k, v = (torch.from_numpy(a).to(cuda)
+               for a in make_inputs(1, 1, 4, 2, 64, 64, 64))
+    out = ops.flash_attention_op(q, k, v)
+    torch.cuda.synchronize()
+    assert out.is_cuda and torch.isfinite(out).all()
+
+
+@pytest.mark.cuda
+def test_kernel_rejects_what_it_does_not_take(cuda):
+    q = torch.zeros((1, 4, 16, 48), device=cuda)
+    k = torch.zeros((1, 2, 16, 48), device=cuda)
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.flash_attention(q, k, k)
+    q = torch.zeros((1, 4, 16, 64), device=cuda)
+    k = torch.zeros((1, 2, 16, 64), device=cuda)
+    with pytest.raises(TypeError):
+        fa.flash_attention(q.half(), k.half(), k.half())
+    with pytest.raises(ValueError, match="T >= S"):
+        fa.flash_attention(q, k[:, :, :8], k[:, :, :8])
+    strided_q = torch.zeros((1, 4, 64, 16), device=cuda).transpose(2, 3)
+    with pytest.raises(ValueError, match="contiguous last dimension"):
+        fa.flash_attention(strided_q, k, k)

@@ -1,0 +1,102 @@
+"""The port's generation loop, sampling, configs and parameter layout
+against ``repro.models`` and ``repro.configs``.
+
+Weights are the reference's ``init_params`` converted with
+``params_from_reference`` (float32 compute); greedy tokens must be equal.
+The helpers are those of ``test_torch_models.py``.
+"""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_config as jget_config
+from repro.configs import smoke_config as jsmoke_config
+from repro.models import sampling as jsampling
+from repro.models import transformer as jt
+from repro_torch.configs import ARCH_IDS, get_config, smoke_config
+from repro_torch.convert import flatten_params, nest_params
+from repro_torch.models import kvcache, sampling, transformer
+from test_torch_models import DENSE, cfgs, ref_params, tokens
+
+
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_config_copies_match_the_reference_field_for_field(arch):
+    assert dataclasses.asdict(get_config(arch)) == \
+        dataclasses.asdict(jget_config(arch))
+    assert dataclasses.asdict(smoke_config(get_config(arch))) == \
+        dataclasses.asdict(jsmoke_config(jget_config(arch)))
+
+
+def test_greedy_generate_matches_teacher_forcing_and_the_reference():
+    jcfg, tcfg = cfgs("starcoder2_3b", attn_impl="pallas")
+    jcfg = dataclasses.replace(jcfg, attn_impl="xla")
+    jp, tp = ref_params("starcoder2_3b")
+    prompt = tokens(0, 2, 8)
+    out = sampling.generate(tp, torch.from_numpy(prompt), tcfg,
+                            max_new_tokens=5)
+    assert out.shape == (2, 5) and out.dtype == torch.int32
+    seq = torch.from_numpy(prompt)
+    for i in range(5):
+        logits, _ = transformer.forward(tp, seq, tcfg)
+        nxt = torch.argmax(logits[:, -1], -1).to(torch.int32)
+        torch.testing.assert_close(out[:, i], nxt, rtol=0, atol=0)
+        seq = torch.cat([seq, nxt[:, None]], dim=1)
+    want = jsampling.generate(jp, jnp.asarray(prompt), jcfg, max_new_tokens=5)
+    np.testing.assert_array_equal(out.numpy(), np.asarray(want))
+
+
+def test_generation_ring_wraps_under_a_sliding_window():
+    jcfg, tcfg = cfgs("starcoder2_3b", sliding_window=12, attn_impl="pallas")
+    jcfg = dataclasses.replace(jcfg, attn_impl="xla")
+    jp, tp = ref_params("starcoder2_3b")
+    prompt = tokens(1, 1, 10)
+    out = sampling.generate(tp, torch.from_numpy(prompt), tcfg,
+                            max_new_tokens=8, cache_width=12)
+    want = jsampling.generate(jp, jnp.asarray(prompt), jcfg,
+                              max_new_tokens=8, cache_width=12)
+    assert out.shape == (1, 8) and (out >= 0).all()
+    np.testing.assert_array_equal(out.numpy(), np.asarray(want))
+
+
+def test_temperature_sampling_respects_top_k():
+    logits = torch.tensor([[0.0, 10.0, 9.0, -5.0]])
+    gen = torch.Generator().manual_seed(0)
+    seen = {int(sampling.sample_token(logits, gen, temperature=1.0,
+                                      top_k=2)[0]) for _ in range(20)}
+    assert seen == {1, 2}
+    assert int(sampling.sample_token(logits)[0]) == 1
+
+
+@pytest.mark.parametrize("arch", ["mixtral_8x22b", "moonshot_v1_16b_a3b",
+                                  "jamba_v0_1_52b", "falcon_mamba_7b"])
+def test_moe_and_ssm_families_are_not_ported_yet(arch):
+    cfg = smoke_config(get_config(arch))
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
+        transformer.init_params(torch.Generator().manual_seed(0), cfg)
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
+        transformer.forward({}, torch.zeros((1, 4), dtype=torch.int32), cfg)
+
+
+def test_port_init_matches_the_reference_layout():
+    """The port's own init gives the reference's names, shapes and dtypes,
+    and flatten/nest carry it to the store's flat dict and back."""
+    for arch in DENSE:
+        jcfg, tcfg = cfgs(arch, param_dtype="bfloat16")
+        want = flatten_params(jax.tree.map(
+            lambda a: (a.shape, str(a.dtype)),
+            jax.eval_shape(lambda: jt.init_params(jax.random.PRNGKey(0),
+                                                  jcfg))))
+        params = transformer.init_params(torch.Generator().manual_seed(0),
+                                         tcfg)
+        flat = flatten_params(params)
+        got = {k: (tuple(v.shape), str(v.dtype).replace("torch.", ""))
+               for k, v in flat.items()}
+        assert got == want
+        assert flatten_params(nest_params(flat)) == flat
+    assert kvcache.cache_width(tcfg, 100) == 100
+    assert kvcache.cache_width(dataclasses.replace(tcfg, sliding_window=32),
+                               100) == 32

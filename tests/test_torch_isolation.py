@@ -1,6 +1,6 @@
 """The PyTorch port stands alone: it imports neither JAX nor the JAX package,
-and its copies of the pure-Python control plane are the reference's sources
-with only the package name changed."""
+and its copies of the pure-Python control plane and of the model configs
+are the reference's sources with only the package name changed."""
 import ast
 import os
 import re
@@ -23,7 +23,10 @@ VERBATIM = (
     + [f"{pkg}/{f}" for pkg in ("memory", "fleet", "serve", "obs")
        for f in sorted(os.listdir(os.path.join(REF, pkg)))
        if f.endswith(".py")]
-    + ["api/spec.py", "api/artifacts.py", "analysis/cachesan.py"])
+    + ["api/spec.py", "api/artifacts.py", "analysis/cachesan.py",
+       "models/config.py"]
+    + [f"configs/{f}" for f in sorted(os.listdir(os.path.join(REF, "configs")))
+       if f.endswith(".py")])
 
 
 def _forbidden(module: str) -> bool:

@@ -1,0 +1,123 @@
+"""The port's LM-expert router against the JAX package's
+``examples/lm_coe_router.py``, at the example's smoke width on the CPU.
+
+The seven experts carry the example's own weights (``init_params`` with
+PRNG keys 0-5 and 99), converted with ``params_from_reference``; the
+requests are the example's draws. Both policies serve all 90 prompts, and
+every request's result ("ok"/"flag" of the safety expert's next token) must
+equal the example's ``lm_apply`` chain on the same tokens: the draft
+expert's on the request, the safety expert's on its follow-up. The next
+tokens themselves must be equal for every prompt. Both packages compute in
+float32 here: under the example's bfloat16 compute a few prompts in 90
+have their top two logits within one bf16 rounding, and the two
+frameworks' matmuls round such a tie different ways.
+"""
+import dataclasses
+import importlib.util
+import os
+import shutil
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.convert import params_from_reference
+from repro_torch.core import COSERVE, SAMBA_PARALLEL, run_real
+from repro_torch.launch import lm_coe_router as router
+
+EXAMPLE = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "examples", "lm_coe_router.py")
+
+
+@pytest.fixture(scope="module")
+def example():
+    spec = importlib.util.spec_from_file_location("lm_coe_router_example",
+                                                  EXAMPLE)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)      # defines cfg and lm_apply; main() unrun
+    # lm_apply reads the module's cfg when it is first traced
+    mod.cfg = dataclasses.replace(mod.cfg, compute_dtype="float32")
+    return mod
+
+
+@pytest.fixture(scope="module")
+def weights(example):
+    from repro.models import transformer as jt
+
+    seeds = dict(zip(router.expert_ids(), [*range(6), 99]))
+    return {eid: jt.init_params(jax.random.PRNGKey(seed), example.cfg)
+            for eid, seed in seeds.items()}
+
+
+def test_config_is_the_examples_with_the_kernel_path(example):
+    cfg = router.lm_config("smoke")
+    assert cfg.attn_impl == "pallas"
+    assert dataclasses.asdict(dataclasses.replace(
+        cfg, attn_impl="xla", compute_dtype="float32")) \
+        == dataclasses.asdict(example.cfg)
+    full = router.lm_config("full", layers=2)
+    assert (full.d_model, full.num_heads, full.num_kv_heads, full.head_dim,
+            full.d_ff, full.vocab_size, full.num_layers) == \
+        (3072, 24, 2, 128, 12288, 49152, 2)
+
+
+def test_router_serves_every_prompt_like_the_example(example, weights):
+    cfg = dataclasses.replace(router.lm_config("smoke"),
+                              compute_dtype="float32")
+    params = {eid: params_from_reference(jax.tree.map(np.asarray, p))
+              for eid, p in weights.items()}
+    rng = np.random.RandomState(0)
+    store = None
+    try:
+        for policy in (COSERVE, SAMBA_PARALLEL):
+            system, coe = router.build_lm_system(
+                cfg, policy, device="cpu", params=params, store=store)
+            store = system.engine.store
+            assert sorted(store.disk) == ["lm_chat", "lm_finance", "lm_math",
+                                          "lm_safety"]
+            assert coe.spec("lm_safety").depends_on == tuple(
+                f"lm_{d}" for d in router.DOMAINS)
+            follow = {}
+            route = system.route_followup
+
+            def capture(req, eid, out):
+                nxt = route(req, eid, out)
+                if nxt is not None:
+                    follow[req.id] = nxt
+                return nxt
+
+            system.route_followup = capture
+            reqs = router.make_requests(rng, cfg)
+            m = run_real(system, reqs)
+            assert m.completed == len(reqs) == router.N_REQS
+            assert sorted(follow) == [r.id for r in reqs]   # every chain
+
+            prompts = np.stack([r.data["tokens"] for r in reqs])
+            lm_apply = router.make_lm_apply(cfg)
+            want = {eid: np.asarray(example.lm_apply(weights[eid],
+                                                     jnp.asarray(prompts)))
+                    for eid in router.expert_ids()}
+            for eid in ("lm_safety", reqs[0].expert_id):
+                with torch.no_grad():
+                    got = lm_apply(params[eid], torch.from_numpy(prompts))
+                np.testing.assert_array_equal(got.numpy(), want[eid])
+            interpret = router.PAYLOAD["interpret"]
+            for i, r in enumerate(reqs):
+                # the draft's result, then the safety check's on the chain
+                assert r.result == interpret(want[r.expert_id][i:i + 1])[0]
+                assert follow[r.id].expert_id == "lm_safety"
+                assert follow[r.id].result == \
+                    interpret(want["lm_safety"][i:i + 1])[0]
+    finally:
+        shutil.rmtree(store.root, ignore_errors=True)
+
+
+def test_cli_reports_both_policies(capsys):
+    report = router.main(["--device", "cpu", "--requests", "12"])
+    assert [p["policy"] for p in report["policies"]] == [
+        COSERVE.name, SAMBA_PARALLEL.name]
+    assert all(p["completed"] == 12 for p in report["policies"])
+    assert report["layers"] == 2 and not report["layers_cut"]
+    assert capsys.readouterr().out.count("makespan_s") == 2
