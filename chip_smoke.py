@@ -30,7 +30,21 @@ Phases, each of which ends the run with a nonzero exit when it fails:
 9. the LM-expert router (``repro_torch.launch.lm_coe_router``) at full
    width with its depth cut to 2 layers: 90 prompts under both policies,
    every expert forward through the flash kernel, and every served forward
-   run again through the plain-torch attention path to compare.
+   run again through the plain-torch attention path to compare;
+10. scan kernel vs plain: ``mamba_scan`` against ``mamba_scan_ref`` at
+   Falcon-Mamba-7B's prefill (B 1, S 4096, D 8192, N 16, x bf16, dt B C
+   float32), float32 over 4096 steps, a ragged float32 case, an all-bf16
+   one with the smoke configs' state of 8, and phase 12's 16-token batches,
+   with the kernel's time, its bound and the plain version's time (no
+   single PyTorch call computes a selective scan: no library yardstick);
+11. Falcon-Mamba-7B at its published width: (a) 2 layers in float32, the
+   kernel path against the plain-torch scan and greedy generation against
+   teacher forcing; (b) all 64 layers with bf16 weights, a 4096-token
+   prefill and 32 decode steps, timed and profiled;
+12. the LM-expert router with ``--arch falcon_mamba_7b`` at full width, 2
+   layers: 90 prompts under both policies, every expert forward's scan
+   through the kernel, every served forward run again through the
+   plain-torch scan to compare.
 
 The last two lines of output are ``{"kernels": [...]}`` and
 ``{"ok": true, "device": {...}}``.
@@ -63,6 +77,12 @@ DECODE_SOURCE = "src/repro_torch/kernels/csrc/decode_attention.cu"
 DECODE_REPLACES = "src/repro/kernels/decode_attention.py:66"
 FLASH_SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
 FLASH_REPLACES = "src/repro/kernels/flash_attention.py:84"
+MAMBA_SOURCE = "src/repro_torch/kernels/csrc/mamba_scan.cu"
+MAMBA_REPLACES = "src/repro/kernels/mamba_scan.py:63"
+# the exponentials' own rate on the SFUs, beside the bound: 16 a clock per
+# SM (CUDA C++ Programming Guide, arithmetic instruction throughput,
+# compute capability 9.0), 132 SMs, the H100 SXM's 1.98 GHz boost clock
+SFU_EXP_PER_S = 16 * 132 * 1.98e9
 
 F32, BF16 = torch.float32, torch.bfloat16
 # (label, batch, heads, kv heads, head dim, ring width, window, q, kv)
@@ -299,10 +319,12 @@ def build_all():
     from repro_torch.kernels import build
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import mamba_scan as ms
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=2) as pool:
-        libs = list(pool.map(build.build_library, (da.SOURCE, fa.SOURCE)))
+    sources = (da.SOURCE, fa.SOURCE, ms.SOURCE)
+    with ThreadPoolExecutor(max_workers=len(sources)) as pool:
+        libs = list(pool.map(build.build_library, sources))
     print(f"built {', '.join(os.path.relpath(p, ROOT) for p in libs)} in "
           f"{time.perf_counter() - t0:.1f} s")
     for lib in libs:
@@ -450,79 +472,89 @@ def kernel_split(prof, names, n_other: int = 4):
     return out, top
 
 
-def transformer_phases(fa, da):
-    """Phase 8 at StarCoder2-3B's full width; returns (a)'s and (b)'s
-    summaries."""
+def parity_run(cfg, seed: int, kernels: dict) -> dict:
+    """(a) of phases 8 and 11: ``cfg`` (float32, the kernels' path) with
+    weights from ``seed``, B 2, a 512-token prompt: forward logits against
+    the plain-torch path (``attn_impl="xla"``) within 1e-4 (only the
+    kernels' sums differ), and 16 greedy tokens against teacher forcing.
+    The summary carries the launches of each of ``kernels`` (name ->
+    wrapper) in the forward and in the generation."""
     import dataclasses
 
-    from torch.profiler import ProfilerActivity, profile
-
-    from repro_torch.configs import get_config
-    from repro_torch.convert import flatten_params
     from repro_torch.models import sampling, transformer
 
     dev = torch.device("cuda")
-    base = dataclasses.replace(get_config("starcoder2_3b"), remat=False)
-
-    # (a) parity: 2 layers, float32 weights and compute
-    cfg = dataclasses.replace(base, num_layers=2, compute_dtype="float32",
-                              attn_impl="pallas")
-    gen = torch.Generator(device=dev).manual_seed(3)
+    gen = torch.Generator(device=dev).manual_seed(seed)
     params = transformer.init_params(gen, cfg)
     prompt = torch.randint(0, cfg.vocab_size, (2, 512), generator=gen,
                            device=dev, dtype=torch.int32)
-    tol = 1e-4      # float32 logits; only the attention's sums differ
+    tol = 1e-4
     with torch.no_grad():
-        fa.flash_attention.launches = 0
+        for k in kernels.values():
+            k.launches = 0
         got, _ = transformer.forward(params, prompt, cfg)
-        flash_fwd = fa.flash_attention.launches
+        fwd = {n: k.launches for n, k in kernels.items()}
         want, _ = transformer.forward(
             params, prompt, dataclasses.replace(cfg, attn_impl="xla"))
         err = (got - want).abs().max().item()
         if not torch.allclose(got, want, rtol=tol, atol=tol):
-            raise AssertionError(f"forward logits, pallas vs xla: max |err| "
-                                 f"{err} > tol {tol}")
-        fa.flash_attention.launches = da.decode_attention.launches = 0
+            raise AssertionError(f"forward logits, kernels vs plain path: "
+                                 f"max |err| {err} > tol {tol}")
+        for k in kernels.values():
+            k.launches = 0
         out = sampling.generate(params, prompt, cfg, max_new_tokens=16)
-        flash_gen = fa.flash_attention.launches
-        decode_gen = da.decode_attention.launches
-        seq, ties = prompt, 0
-        for i in range(16):
-            logits, _ = transformer.forward(params, seq, cfg)
-            last = logits[:, -1]
-            nxt = torch.argmax(last, -1).to(torch.int32)
-            for row in torch.nonzero(out[:, i] != nxt).flatten().tolist():
-                # only a tie within float32 noise may break another way
-                top2 = torch.topk(last[row], 2).values
-                if (top2[0] - top2[1]).item() > 1e-4:
-                    raise AssertionError(
-                        f"greedy token {i} of row {row}: generate gave "
-                        f"{int(out[row, i])}, teacher forcing {int(nxt[row])}")
-                ties += 1
-            seq = torch.cat([seq, out[:, i:i + 1]], dim=1)
-    summary_a = {"phase": "8a parity, 2 layers fp32", "forward_max_abs_err":
-                 err, "tol": tol, "generated": list(out.shape),
-                 "ties": ties, "flash_launches_forward": flash_fwd,
-                 "flash_launches_generate": flash_gen,
-                 "decode_launches_generate": decode_gen}
-    print(json.dumps(summary_a), flush=True)
-    if not (flash_fwd == flash_gen == cfg.num_layers
-            and decode_gen == cfg.num_layers * 15):
-        raise AssertionError(f"launch counts {summary_a} != {cfg.num_layers} "
-                             f"flash and {cfg.num_layers * 15} decode")
+        generate = {n: k.launches for n, k in kernels.items()}
+        ties = greedy_vs_teacher_forcing(transformer, params, prompt, out,
+                                         cfg)
     del params, got, want
     torch.cuda.empty_cache()
+    return {"forward_max_abs_err": err, "tol": tol,
+            "generated": list(out.shape), "ties": ties,
+            "launches_forward": fwd, "launches_generate": generate}
 
-    # (b) the whole model: 30 layers, bf16 weights and compute
-    cfg = dataclasses.replace(base, param_dtype="bfloat16",
-                              attn_impl="pallas")
+
+def greedy_vs_teacher_forcing(transformer, params, prompt, out, cfg):
+    """Each generated token against the argmax of a full forward over the
+    prompt and the tokens before it; a row may differ only on a float32
+    near-tie (top two logits within 1e-4). Returns the number of ties."""
+    seq, ties = prompt, 0
+    for i in range(out.shape[1]):
+        logits, _ = transformer.forward(params, seq, cfg)
+        last = logits[:, -1]
+        nxt = torch.argmax(last, -1).to(torch.int32)
+        for row in torch.nonzero(out[:, i] != nxt).flatten().tolist():
+            top2 = torch.topk(last[row], 2).values
+            if (top2[0] - top2[1]).item() > 1e-4:
+                raise AssertionError(
+                    f"greedy token {i} of row {row}: generate gave "
+                    f"{int(out[row, i])}, teacher forcing {int(nxt[row])}")
+            ties += 1
+        seq = torch.cat([seq, out[:, i:i + 1]], dim=1)
+    return ties
+
+
+def whole_model_run(cfg, seeds, kernels: dict, prefill_names,
+                    decode_names) -> dict:
+    """(b) of phases 8 and 11: ``cfg`` whole (bf16 weights from
+    ``seeds[0]``), B 1, a 4096-token prompt from ``seeds[1]``: the prefill
+    and 32 decode steps timed by CUDA events, the launches of each of
+    ``kernels`` in each, and the device time of a prefill and of a decode
+    step by kernel family (``torch.profiler``)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.convert import flatten_params
+    from repro_torch.models import transformer
+
+    dev = torch.device("cuda")
     params = transformer.init_params(
-        torch.Generator(device=dev).manual_seed(4), cfg)
-    nbytes = sum(t.numel() * t.element_size()
-                 for t in flatten_params(params).values())
+        torch.Generator(device=dev).manual_seed(seeds[0]), cfg)
+    flat = flatten_params(params)
+    nbytes = sum(t.numel() * t.element_size() for t in flat.values())
+    n_params = sum(t.numel() for t in flat.values())
+    del flat
     prompt = torch.randint(0, cfg.vocab_size, (1, 4096), device=dev,
-                           generator=torch.Generator(device=dev).manual_seed(5),
-                           dtype=torch.int32)
+                           generator=torch.Generator(device=dev).manual_seed(
+                               seeds[1]), dtype=torch.int32)
     width, steps = 4096 + 32, 32
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -538,68 +570,108 @@ def transformer_phases(fa, da):
     with torch.no_grad():
         transformer.prefill(params, prompt, cfg, width)        # warm
         torch.cuda.synchronize()
-        fa.flash_attention.launches = da.decode_attention.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        for k in kernels.values():
+            k.launches = 0
         start.record()
         logits, cache = transformer.prefill(params, prompt, cfg, width)
         end.record()
         end.synchronize()
         prefill_ms = start.elapsed_time(end)
-        flash_prefill = fa.flash_attention.launches
+        at_prefill = {n: k.launches for n, k in kernels.items()}
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
         start.record()
         last = decode_loop(logits, cache, steps)
         end.record()
         end.synchronize()
         token_ms = start.elapsed_time(end) / steps
-        decode_steps = da.decode_attention.launches
+        in_decode = {n: k.launches - at_prefill[n]
+                     for n, k in kernels.items()}
         if not torch.isfinite(last.float()).all():
             raise AssertionError("non-finite logits after 32 decode steps")
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             transformer.prefill(params, prompt, cfg, width)
             torch.cuda.synchronize()
-        pre_split, pre_other = kernel_split(prof, ("flash_bf16_kernel",))
+        pre_split, pre_other = kernel_split(prof, prefill_names)
         logits, cache = transformer.prefill(params, prompt, cfg, width)
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             decode_loop(logits, cache, 8)
             torch.cuda.synchronize()
-        dec_split, _ = kernel_split(prof, ("decode_attention_kernel",
-                                           "combine_kernel"))
-        dec_split = {k: v / 8 for k, v in dec_split.items()}
-    summary_b = {"phase": "8b starcoder2-3b, 30 layers bf16",
-                 "weights_gb": nbytes / 1e9, "prompt": 4096,
-                 "prefill_ms": prefill_ms, "decode_ms_per_token": token_ms,
-                 "flash_launches_prefill": flash_prefill,
-                 "decode_launches_32_steps": decode_steps,
-                 "prefill_device_ms_by_kernel": pre_split,
-                 "prefill_other_top_ms": pre_other,
-                 "decode_step_device_ms_by_kernel": dec_split,
-                 "prefill_flash_share": pre_split["flash_bf16_kernel"]
-                 / max(sum(pre_split.values()), 1e-9),
-                 "decode_attention_share": (
-                     dec_split["decode_attention_kernel"]
-                     + dec_split["combine_kernel"])
-                 / max(sum(dec_split.values()), 1e-9)}
-    print(json.dumps(summary_b), flush=True)
-    if flash_prefill != cfg.num_layers or \
-            decode_steps != cfg.num_layers * steps:
-        raise AssertionError(f"launch counts {summary_b} != "
-                             f"{cfg.num_layers} flash per prefill and "
-                             f"{cfg.num_layers * steps} decode")
+        dec_split, dec_other = kernel_split(prof, decode_names)
     del params, cache, logits
     torch.cuda.empty_cache()
+    per_step = lambda split: {k: v / 8 for k, v in split.items()}
+    return {"params": n_params, "weights_gb": nbytes / 1e9, "prompt": 4096,
+            "prefill_ms": prefill_ms, "prefill_peak_gb": peak_gb,
+            "decode_ms_per_token": token_ms,
+            "launches_prefill": at_prefill,
+            "launches_32_decode_steps": in_decode,
+            "prefill_device_ms_by_kernel": pre_split,
+            "prefill_other_top_ms": pre_other,
+            "decode_step_device_ms_by_kernel": per_step(dec_split),
+            "decode_other_top_ms": per_step(dec_other)}
+
+
+def transformer_phases(fa, da):
+    """Phase 8 at StarCoder2-3B's full width; returns (a)'s and (b)'s
+    summaries."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    base = dataclasses.replace(get_config("starcoder2_3b"), remat=False,
+                               attn_impl="pallas")
+    kernels = {"flash_attention": fa.flash_attention,
+               "decode_attention": da.decode_attention}
+    # (a) parity: 2 layers, float32 weights and compute
+    cfg = dataclasses.replace(base, num_layers=2, compute_dtype="float32")
+    summary_a = {"phase": "8a parity, 2 layers fp32",
+                 **parity_run(cfg, 3, kernels)}
+    print(json.dumps(summary_a), flush=True)
+    n = cfg.num_layers
+    if summary_a["launches_forward"]["flash_attention"] != n or \
+            summary_a["launches_generate"] != {"flash_attention": n,
+                                               "decode_attention": n * 15}:
+        raise AssertionError(f"launch counts {summary_a}: {n} flash a "
+                             f"forward and a prefill, {n * 15} decode")
+
+    # (b) the whole model: 30 layers, bf16 weights and compute
+    cfg = dataclasses.replace(base, param_dtype="bfloat16")
+    summary_b = {"phase": "8b starcoder2-3b, 30 layers bf16",
+                 **whole_model_run(cfg, (4, 5), kernels,
+                                   ("flash_bf16_kernel",),
+                                   ("decode_attention_kernel",
+                                    "combine_kernel"))}
+    pre, dec = (summary_b["prefill_device_ms_by_kernel"],
+                summary_b["decode_step_device_ms_by_kernel"])
+    summary_b["prefill_flash_share"] = pre["flash_bf16_kernel"] / max(
+        sum(pre.values()), 1e-9)
+    summary_b["decode_attention_share"] = (
+        dec["decode_attention_kernel"] + dec["combine_kernel"]) / max(
+        sum(dec.values()), 1e-9)
+    print(json.dumps(summary_b), flush=True)
+    n = cfg.num_layers
+    if summary_b["launches_prefill"]["flash_attention"] != n or \
+            summary_b["launches_32_decode_steps"]["decode_attention"] \
+            != n * 32:
+        raise AssertionError(f"launch counts {summary_b}: {n} flash per "
+                             f"prefill and {n * 32} decode")
     return summary_a, summary_b
 
 
-def lm_router_phase(fa, layers: int = 2):
-    """Phase 9: the LM router at full width, depth cut to ``layers``; every
-    prompt completes, flash launches = layers x expert forwards, and every
-    served forward's tokens equal the plain-torch path (``attn_impl="xla"``)
-    on the same padded batch."""
+def lm_router_phase(kernel, arch: str = "starcoder2_3b", layers: int = 2):
+    """Phases 9 and 12: the LM router with ``arch``'s experts at full width,
+    depth cut to ``layers``; every prompt completes, the launches of
+    ``kernel`` (the wrapper of the one kernel each layer runs once a
+    forward: flash attention, or the selective scan) = layers x expert
+    forwards, and every served forward's tokens equal the plain-torch path
+    (``attn_impl="xla"``) on the same padded batch."""
     import shutil
 
     from repro_torch.core import COSERVE, SAMBA_PARALLEL, run_real
     from repro_torch.launch import lm_coe_router as router
 
-    cfg = router.lm_config("full", layers)
+    cfg = router.lm_config("full", layers, arch)
     rng = np.random.RandomState(0)
     store, lines, launches = None, [], 0
     served = []        # (expert id, padded tokens, served argmax), on the host
@@ -629,23 +701,26 @@ def lm_router_phase(fa, layers: int = 2):
             engine.apply_fns["tiny_lm"] = record_apply
             reqs = router.make_requests(rng, cfg)
             lm_apply.calls = 0
-            fa.flash_attention.launches = 0
+            kernel.launches = 0
             m = run_real(system, reqs)
-            flash = fa.flash_attention.launches
+            count = kernel.launches
             calls = lm_apply.calls
-            launches += flash
-            line = {"policy": policy.name, "completed": m.completed,
-                    "requests": len(reqs), "expert_loads": m.switches,
-                    "makespan_s": m.makespan, "forwards": calls,
-                    "flash_launches": flash, "build_s": built_s,
-                    "layers": cfg.num_layers, "d_model": cfg.d_model}
+            launches += count
+            line = {"arch": arch, "policy": policy.name,
+                    "completed": m.completed, "requests": len(reqs),
+                    "expert_loads": m.switches, "makespan_s": m.makespan,
+                    "forwards": calls, "kernel": kernel.__name__,
+                    "kernel_launches": count, "build_s": built_s,
+                    "layers": cfg.num_layers, "d_model": cfg.d_model,
+                    "param_dtype": cfg.param_dtype}
             print(json.dumps(line), flush=True)
             lines.append(line)
             if m.completed != len(reqs):
                 raise AssertionError(f"{m.completed} of {len(reqs)} prompts")
-            if not 0 < flash == cfg.num_layers * calls:
-                raise AssertionError(f"{flash} flash launches for {calls} "
-                                     f"forwards of {cfg.num_layers} layers")
+            if not 0 < count == cfg.num_layers * calls:
+                raise AssertionError(f"{count} {kernel.__name__} launches for "
+                                     f"{calls} forwards of {cfg.num_layers} "
+                                     "layers")
             del system, engine, record_execute, record_apply
             gc.collect()       # the engine's device copies of the experts
             torch.cuda.empty_cache()
@@ -714,6 +789,128 @@ def check_served(store, served, cfg):
     return line
 
 
+# (label, batch, S, D, N, x dtype, dt dtype, B/C dtype, tolerance)
+MAMBA_GEOMETRIES = [
+    ("falcon-mamba prefill", 1, 4096, 8192, 16, BF16, F32, F32, 2e-2),
+    ("fp32 over 4096 steps", 1, 4096, 2048, 16, F32, F32, F32, 1e-5),
+    ("ragged fp32", 2, 1000, 1000, 16, F32, F32, F32, 1e-5),
+    ("all bf16, state 8", 2, 333, 520, 8, BF16, BF16, BF16, 2e-2),
+    # phase 12's forwards: 16-token prompts in batches padded to 1/2/4/8
+    *((f"lm router, batch {b}", b, 16, 8192, 16, BF16, F32, F32, 2e-2)
+      for b in (1, 2, 4, 8)),
+]
+MAMBA_REPORTED = "falcon-mamba prefill"
+
+
+def mamba_vs_plain(ms, ref):
+    """Phase 10: one line per geometry; returns the lines. Inputs: dt a
+    softplus, A negative. The tolerance holds y and the final state: in
+    bf16, 2e-2 relative and absolute (y is rounded to bf16); in float32,
+    1e-5 relative and 1e-5 of the largest |value| absolute, since y_t sums
+    N products C h whose size is the state's (hundreds here) and which
+    cancel, and the kernel sums them in another order."""
+    lines = []
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(2)
+    for label, b, s, d, n, xt, dtt, bct, tol in MAMBA_GEOMETRIES:
+        size = lambda t: 2 if t == BF16 else 4
+        per_set = b * s * d * (2 * size(xt) + size(dtt)) \
+            + 2 * b * s * n * size(bct)
+        copies = max(1, min(8, math.ceil(2 * L2_BYTES / per_set)))
+
+        def randn(*shape):
+            return torch.randn(shape, generator=gen, device=dev)
+
+        a = -torch.exp(randn(d, n))
+        d_vec = randn(d)
+        sets = [(randn(b, s, d).to(xt),
+                 torch.nn.functional.softplus(randn(b, s, d)).to(dtt),
+                 randn(b, s, n).to(bct), randn(b, s, n).to(bct), a, d_vec)
+                for _ in range(copies)]
+        y, h = ms.mamba_scan(*sets[0])
+        want_y, want_h = ref.mamba_scan_ref(*sets[0])
+        torch.cuda.synchronize()
+        err, scale = 0.0, 0.0
+        for got, want in ((y.float(), want_y.float()), (h, want_h)):
+            top = want.abs().max().item()
+            atol = tol * top if xt == F32 else tol
+            err = max(err, (got - want).abs().max().item())
+            scale = max(scale, top)
+            if not torch.allclose(got, want, rtol=tol, atol=atol):
+                raise AssertionError(
+                    f"mamba_scan disagrees with its plain version at "
+                    f"{label}: max |err| {err} > tol {tol} (atol {atol})")
+        ms_kernel = time_ms(ms.mamba_scan, sets, 20)
+        eager_ms = time_ms(ms.mamba_scan, sets, 20, graph=False)
+        plain_ms = time_ms(ref.mamba_scan_ref, sets[:1],
+                           1 if s > 1000 else 3)
+        # bound: x, dt, B, C, A, D read once, y and h written once; per
+        # (b, s, d, n) the exponential, dt*A, dtx*B, the state's FMA and the
+        # C FMA (7 operations), per (b, s, d) dt*x and the D skip (3)
+        nbytes = (b * s * d * (2 * size(xt) + size(dtt))
+                  + 2 * b * s * n * size(bct) + d * n * 4 + d * 4
+                  + b * d * n * 4)
+        ops = b * s * d * (7 * n + 3)
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
+        line = {"shape": f"{label}: B={b} S={s} D={d} N={n} x "
+                         f"{'bf16' if xt == BF16 else 'fp32'} dt "
+                         f"{'bf16' if dtt == BF16 else 'fp32'} B/C "
+                         f"{'bf16' if bct == BF16 else 'fp32'}",
+                "max_abs_err": err, "max_abs_value": scale, "tol": tol,
+                "ms": ms_kernel,
+                "eager_ms": eager_ms, "plain_ms": plain_ms,
+                "library_ms": None,
+                "bound_ms": max(t_bytes, t_ops) * 1e3,
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                "bytes_ms": t_bytes * 1e3, "ops_ms": t_ops * 1e3,
+                "sfu_exp_ms": b * s * d * n / SFU_EXP_PER_S * 1e3,
+                "reported": label == MAMBA_REPORTED}
+        print(json.dumps(line), flush=True)
+        lines.append(line)
+        del sets, y, h, want_y, want_h
+        torch.cuda.empty_cache()
+    return lines
+
+
+def falcon_phases(ms):
+    """Phase 11 at Falcon-Mamba-7B's published width; returns (a)'s and
+    (b)'s summaries. Every prefill and full-sequence forward launches the
+    scan kernel once a layer; decode steps run the recurrence in torch."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    base = dataclasses.replace(get_config("falcon_mamba_7b"), remat=False,
+                               attn_impl="pallas")
+    kernels = {"mamba_scan": ms.mamba_scan}
+    # (a) parity: 2 layers, float32 weights and compute
+    cfg = dataclasses.replace(base, num_layers=2, compute_dtype="float32")
+    summary_a = {"phase": "11a parity, 2 layers fp32",
+                 **parity_run(cfg, 6, kernels)}
+    print(json.dumps(summary_a), flush=True)
+    n = cfg.num_layers
+    if not summary_a["launches_forward"] == summary_a["launches_generate"] \
+            == {"mamba_scan": n}:
+        raise AssertionError(f"scan launches {summary_a}: {n} per forward "
+                             "and per prefill, none in decode")
+
+    # (b) the whole model: 64 layers, bf16 weights and compute
+    cfg = dataclasses.replace(base, param_dtype="bfloat16")
+    summary_b = {"phase": "11b falcon-mamba-7b, 64 layers bf16",
+                 **whole_model_run(cfg, (7, 8), kernels,
+                                   ("mamba_scan_kernel",), ())}
+    pre = summary_b["prefill_device_ms_by_kernel"]
+    summary_b["prefill_scan_share"] = pre["mamba_scan_kernel"] / max(
+        sum(pre.values()), 1e-9)
+    print(json.dumps(summary_b), flush=True)
+    n = cfg.num_layers
+    if summary_b["launches_prefill"] != {"mamba_scan": n} or \
+            summary_b["launches_32_decode_steps"] != {"mamba_scan": 0}:
+        raise AssertionError(f"scan launches {summary_b}: {n} per prefill, "
+                             "none in decode")
+    return summary_a, summary_b
+
+
 def kernel_entry(name, source, replaces, launches, line) -> dict:
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
@@ -739,6 +936,7 @@ def main() -> int:
 
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import mamba_scan as ms
     from repro_torch.kernels import ref
     from repro_torch.launch import serve
 
@@ -774,18 +972,34 @@ def main() -> int:
     phase("8 the transformer at StarCoder2-3B's full width")
     transformer_phases(fa, da)
 
-    phase("9 LM-expert router, full width, 2 layers (this slice's main path)")
-    _, flash_launches = lm_router_phase(fa)
+    phase("9 LM-expert router, full width, 2 layers (the second slice's "
+          "main path)")
+    _, flash_launches = lm_router_phase(fa.flash_attention)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    phase("10 scan kernel vs plain")
+    mamba_lines = mamba_vs_plain(ms, ref)
+
+    phase("11 Falcon-Mamba-7B at its published width")
+    falcon_phases(ms)
+
+    phase("12 LM-expert router, Falcon-Mamba-7B experts, full width, 2 "
+          "layers (this slice's main path)")
+    _, scan_launches = lm_router_phase(ms.mamba_scan, "falcon_mamba_7b")
 
     rep = next(ln for ln in lines if ln["reported"])
     flash_rep = next(ln for ln in flash_lines if ln["reported"])
+    mamba_rep = next(ln for ln in mamba_lines if ln["reported"])
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(f"card: {card_line()}")
     print(json.dumps({"kernels": [
         kernel_entry("decode_attention", DECODE_SOURCE, DECODE_REPLACES,
                      decode_launches, rep),
         kernel_entry("flash_attention", FLASH_SOURCE, FLASH_REPLACES,
-                     flash_launches, flash_rep)]}))
+                     flash_launches, flash_rep),
+        kernel_entry("mamba_scan", MAMBA_SOURCE, MAMBA_REPLACES,
+                     scan_launches, mamba_rep)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,0 +1,118 @@
+"""Mamba-1 selective scan: the hand-written Hopper kernel
+(``csrc/mamba_scan.cu``) and its wrapper.
+
+The kernel replaces the Pallas TPU kernel
+``repro.kernels.mamba_scan.mamba_scan``. It is compiled with ``nvcc`` for
+``sm_90a`` into a shared library with a plain C interface at first use
+(``build.load_library``) and loaded with ``ctypes``. A tensor on the CPU
+takes the plain version (``ref.mamba_scan_ref``); a CUDA tensor launches the
+kernel or raises. ``mamba_scan.launches`` counts the launches.
+
+The TPU kernel's ``block_d`` and ``block_s`` choose its TPU tiling and the
+padding of S; the Hopper kernel picks its own tiles and pads nothing, so the
+wrapper has neither.
+"""
+from __future__ import annotations
+
+import ctypes
+from pathlib import Path
+
+import torch
+
+from repro_torch.kernels.build import load_library
+from repro_torch.kernels.ref import mamba_scan_ref
+
+SOURCE = Path(__file__).resolve().parent / "csrc" / "mamba_scan.cu"
+X_DTYPES = (torch.float32, torch.bfloat16)
+STATE_DIMS = (1, 2, 4, 8, 16, 32)
+
+
+def _bind(lib):
+    fn = lib.coserve_mamba_scan
+    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 4
+                   + [ctypes.c_longlong] * 8 + [ctypes.c_int] * 3
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    lib.coserve_mamba_error_string.argtypes = [ctypes.c_int]
+    lib.coserve_mamba_error_string.restype = ctypes.c_char_p
+
+
+def _check(x, dt, b_mat, c_mat, a, d_vec):
+    """Raise on any dtype, shape, stride or device the kernel does not
+    take (the device last, so the others can be checked on meta tensors)."""
+    tensors = {"x": x, "dt": dt, "b_mat": b_mat, "c_mat": c_mat, "a": a,
+               "d_vec": d_vec}
+    if x.dtype not in X_DTYPES:
+        raise TypeError(f"mamba_scan takes x in float32 or bfloat16, got "
+                        f"{x.dtype}")
+    pair = (torch.float32, x.dtype)
+    if dt.dtype not in pair or b_mat.dtype not in pair \
+            or c_mat.dtype != b_mat.dtype:
+        raise TypeError("mamba_scan takes dt, and b_mat with c_mat, each in "
+                        f"float32 or in x's dtype {x.dtype}; got dt "
+                        f"{dt.dtype}, b_mat {b_mat.dtype}, c_mat "
+                        f"{c_mat.dtype}")
+    if a.dtype != torch.float32 or d_vec.dtype != torch.float32:
+        raise TypeError(f"mamba_scan takes a and d_vec in float32, got "
+                        f"{a.dtype}, {d_vec.dtype}")
+    if x.dim() != 3 or dt.shape != x.shape or b_mat.dim() != 3 \
+            or c_mat.shape != b_mat.shape:
+        raise ValueError("mamba_scan: x, dt [B,S,D] and b_mat, c_mat "
+                         f"[B,S,N]; got x {tuple(x.shape)}, dt "
+                         f"{tuple(dt.shape)}, b_mat {tuple(b_mat.shape)}, "
+                         f"c_mat {tuple(c_mat.shape)}")
+    bsz, s, d = x.shape
+    n = b_mat.shape[-1]
+    if b_mat.shape[:2] != (bsz, s) or tuple(a.shape) != (d, n) \
+            or tuple(d_vec.shape) != (d,):
+        raise ValueError(f"mamba_scan: b_mat {tuple(b_mat.shape)}, a "
+                         f"{tuple(a.shape)} and d_vec {tuple(d_vec.shape)} "
+                         f"do not fit x {tuple(x.shape)}")
+    if min(bsz, s, d) < 1 or bsz > 65535:
+        raise ValueError(f"mamba_scan: x {tuple(x.shape)} needs B, S, D >= 1 "
+                         "and B <= 65535")
+    if n not in STATE_DIMS:
+        raise ValueError(f"mamba_scan: state dim N={n} must be one of "
+                         f"{STATE_DIMS}")
+    for name in ("x", "dt", "b_mat", "c_mat"):
+        if tensors[name].stride(2) != 1:
+            raise ValueError(f"mamba_scan: {name} needs a contiguous last "
+                             f"dimension, got strides "
+                             f"{tensors[name].stride()}")
+    if not (a.is_contiguous() and d_vec.is_contiguous()):
+        raise ValueError("mamba_scan: a and d_vec must be contiguous")
+    if not x.is_cuda or any(t.device != x.device for t in tensors.values()):
+        raise ValueError("mamba_scan: every input must lie on one CUDA "
+                         "device, got " + ", ".join(
+                             f"{k} on {t.device}" for k, t in tensors.items()))
+
+
+def mamba_scan(x, dt, b_mat, c_mat, a, d_vec):
+    """x, dt: [B,S,D]; b_mat, c_mat: [B,S,N]; a: [D,N]; d_vec: [D].
+    Returns (y [B,S,D] in x's dtype, h_final [B,D,N] float32)."""
+    if x.device.type == "cpu":
+        return mamba_scan_ref(x, dt, b_mat, c_mat, a, d_vec)
+    _check(x, dt, b_mat, c_mat, a, d_vec)
+    lib = load_library(SOURCE, _bind)
+    bsz, s, d = x.shape
+    n = b_mat.shape[-1]
+    y = torch.empty((bsz, s, d), dtype=x.dtype, device=x.device)
+    h = torch.empty((bsz, d, n), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = lib.coserve_mamba_scan(
+            x.data_ptr(), dt.data_ptr(), b_mat.data_ptr(), c_mat.data_ptr(),
+            a.data_ptr(), d_vec.data_ptr(), y.data_ptr(), h.data_ptr(), bsz,
+            s, d, n, *x.stride()[:2], *dt.stride()[:2], *b_mat.stride()[:2],
+            *c_mat.stride()[:2], int(x.dtype == torch.bfloat16),
+            int(dt.dtype == torch.bfloat16),
+            int(b_mat.dtype == torch.bfloat16), stream)
+    if rc != 0:
+        raise RuntimeError(
+            f"mamba_scan kernel launch failed: CUDA error {rc} "
+            f"({lib.coserve_mamba_error_string(rc).decode()})")
+    mamba_scan.launches += 1
+    return y, h
+
+
+mamba_scan.launches = 0

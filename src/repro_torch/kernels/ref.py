@@ -54,3 +54,26 @@ def decode_attention_ref(q, k_cache, v_cache, pos, *, window: int = 0):
     p = torch.softmax(scores, dim=-1)
     out = torch.einsum("bhw,bhwd->bhd", p, v)
     return out.to(q.dtype)
+
+
+def mamba_scan_ref(x, dt, b_mat, c_mat, a, d_vec, h0=None):
+    """Naive sequential selective scan (Mamba-1), in float32:
+    ``h_t = exp(dt_t A) h_{t-1} + dt_t B_t x_t`` and ``y_t = C_t h_t
+    + D x_t``.
+
+    x, dt: [B,S,D]; b_mat, c_mat: [B,S,N]; a: [D,N]; d_vec: [D]; ``h0``
+    [B,D,N] the state before the first step (zeros without it). Returns
+    (y [B,S,D] in x's dtype, h_final [B,D,N] float32)."""
+    bsz, s, d = x.shape
+    xf, dtf = x.float(), dt.float()
+    bf, cf, af = b_mat.float(), c_mat.float(), a.float()
+    h = (torch.zeros((bsz, d, b_mat.shape[-1]), dtype=torch.float32,
+                     device=x.device) if h0 is None else h0.float())
+    ys = []
+    for t in range(s):
+        da = torch.exp(dtf[:, t, :, None] * af[None])               # [B,D,N]
+        dbx = (dtf[:, t] * xf[:, t])[:, :, None] * bf[:, t, None, :]
+        h = da * h + dbx
+        ys.append(torch.einsum("bdn,bn->bd", h, cf[:, t]))
+    y = torch.stack(ys, dim=1) + xf * d_vec.float()[None, None]
+    return y.to(x.dtype), h

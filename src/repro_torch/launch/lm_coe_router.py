@@ -1,21 +1,28 @@
 """LM Collaboration-of-Experts (the paper's §2.1 Qihoo-360 scenario) on the
 card: a domain router dispatches prompts to specialised LM experts —
-StarCoder2-3B-shaped transformer stacks with seeded random weights — served
-through CoServe with real disk -> host -> device loads. The twin of the JAX
-package's ``examples/lm_coe_router.py``: the same six domain experts plus a
-shared safety expert that depends on all six and checks every draft, the
-same routing, chain probabilities, payload hooks, profiling and policies.
+StarCoder2-3B-shaped transformer stacks, or Falcon-Mamba-7B-shaped SSM
+stacks, with seeded random weights — served through CoServe with real
+disk -> host -> device loads. The twin of the JAX package's
+``examples/lm_coe_router.py``: the same six domain experts plus a shared
+safety expert that depends on all six and checks every draft, the same
+routing, chain probabilities, payload hooks, profiling and policies; only
+the experts' config is chosen by ``--arch``.
 
-Each expert's forward runs with ``attn_impl="pallas"``, so its attention
-goes through the hand-written ``flash_attention`` kernel on the card.
+Each expert's forward runs with ``attn_impl="pallas"``, so on the card its
+attention goes through the hand-written ``flash_attention`` kernel
+(StarCoder2-3B) or its selective scan through ``mamba_scan``
+(Falcon-Mamba-7B).
 
   python -m repro_torch.launch.lm_coe_router                     # smoke width, on the card
   python -m repro_torch.launch.lm_coe_router --width full --layers 2
+  python -m repro_torch.launch.lm_coe_router --arch falcon_mamba_7b --width full --layers 2
   python -m repro_torch.launch.lm_coe_router --device cpu        # on the host
 
-``--width full`` is StarCoder2-3B's published width (d_model 3072, 24/2
-heads of 128, d_ff 12288, vocab 49152); ``--layers`` cuts its depth, and a
-report of the run names that cut.
+``--width full`` is the published width: StarCoder2-3B's d_model 3072,
+24/2 heads of 128, d_ff 12288, vocab 49152; Falcon-Mamba-7B's d_model 4096,
+d_inner 8192, state 16, dt_rank 256, vocab 65024, its weights in bfloat16
+(below). ``--layers`` cuts the depth, and a report of the run names that
+cut.
 """
 from __future__ import annotations
 
@@ -41,6 +48,7 @@ from repro_torch.core.engines import (HostStore, RealEngine, resolve_device,
 from repro_torch.models import transformer
 from repro_torch.models.config import ModelConfig
 
+ARCHS = ("starcoder2_3b", "falcon_mamba_7b")
 DOMAINS = ["code", "math", "law", "chat", "bio", "finance"]
 N_REQS = 90
 PROMPT_TOKENS = 16
@@ -52,14 +60,26 @@ PAYLOAD = {
 }
 
 
-def lm_config(width: str = "smoke", layers: int = 0) -> ModelConfig:
-    """StarCoder2-3B at its smoke width (as the example serves it) or its
-    published width, with ``layers`` > 0 cutting the depth."""
-    cfg = get_config("starcoder2_3b")
+def lm_config(width: str = "smoke", layers: int = 0,
+              arch: str = "starcoder2_3b") -> ModelConfig:
+    """The experts' config: ``arch`` at its smoke width (as the example
+    serves it) or its published width, with ``layers`` > 0 cutting the
+    depth.
+
+    Falcon-Mamba-7B at full width keeps its weights in bfloat16, the dtype
+    it computes in: at 2 layers an expert has 476.9 M parameters, 1.91 GB
+    in float32, so the seven experts would take 13.4 GB of host memory
+    (four of them written to the disk tier as well); in bfloat16 they take
+    6.7 GB and every forward skips a cast of its weights."""
+    if arch not in ARCHS:
+        raise ValueError(f"arch must be one of {ARCHS}, got {arch!r}")
+    cfg = get_config(arch)
     if width == "smoke":
         cfg = smoke_config(cfg)
     elif width != "full":
         raise ValueError(f"width must be 'smoke' or 'full', got {width!r}")
+    elif arch == "falcon_mamba_7b":
+        cfg = dataclasses.replace(cfg, param_dtype="bfloat16")
     cfg = dataclasses.replace(cfg, remat=False, attn_impl="pallas")
     if layers:
         cfg = dataclasses.replace(cfg, num_layers=layers)
@@ -175,16 +195,18 @@ def make_requests(rng: np.random.RandomState, cfg: ModelConfig,
 
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--arch", choices=ARCHS, default="starcoder2_3b")
     ap.add_argument("--width", choices=["smoke", "full"], default="smoke")
     ap.add_argument("--layers", type=int, default=0,
                     help="cut the depth to N layers (0: the config's own)")
     ap.add_argument("--requests", type=int, default=N_REQS)
     ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
     args = ap.parse_args(argv)
-    cfg = lm_config(args.width, args.layers)
+    cfg = lm_config(args.width, args.layers, args.arch)
     rng = np.random.RandomState(0)
-    report = {"width": args.width, "layers": cfg.num_layers,
-              "layers_cut": bool(args.layers), "policies": []}
+    report = {"arch": args.arch, "width": args.width,
+              "layers": cfg.num_layers, "layers_cut": bool(args.layers),
+              "policies": []}
     store = None
     try:
         for policy in (COSERVE, SAMBA_PARALLEL):

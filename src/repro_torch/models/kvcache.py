@@ -1,26 +1,30 @@
-"""KV-cache construction: the port of ``repro.models.kvcache`` for the
-attention slots (a mamba slot's state comes with the SSM slice)."""
+"""KV-cache / SSM-state construction: the port of ``repro.models.kvcache``.
+An attention slot's entry is a heads-major ring, a mamba slot's the
+(conv, ssm) state the decode recurrence carries."""
 from __future__ import annotations
 
 import torch
 
 from repro_torch.models.layers import torch_dtype
 
-SSM_ITEM = "ROADMAP Queue 1 item 2 (the SSM slice, mamba_scan)"
-
 
 def slot_cache_shape(cfg, slot, batch: int, width: int, device="cpu"):
-    """Zeroed cache entry for one period-slot (leading dim = n_periods), in
-    the heads-major layout [P, B, Hkv, W, hd]."""
-    if slot.mixer != "attn":
-        raise NotImplementedError(
-            f"{cfg.name}: a {slot.mixer} slot's cache is not ported yet; "
-            f"see {SSM_ITEM}")
-    shape = (cfg.num_periods(), batch, cfg.num_kv_heads, width,
-             cfg.resolved_head_dim)
+    """Zeroed cache entry for one period-slot (leading dim = n_periods):
+    for attention {"k", "v"} [P, B, Hkv, W, hd] in the kv dtype; for mamba
+    {"conv": [P, B, W_conv-1, di] in the kv dtype, "ssm": [P, B, di, N]
+    float32}."""
+    p = cfg.num_periods()
     kvdt = torch_dtype(cfg.kv_dtype)
-    return {"k": torch.zeros(shape, dtype=kvdt, device=device),
-            "v": torch.zeros(shape, dtype=kvdt, device=device)}
+    if slot.mixer == "attn":
+        shape = (p, batch, cfg.num_kv_heads, width, cfg.resolved_head_dim)
+        return {"k": torch.zeros(shape, dtype=kvdt, device=device),
+                "v": torch.zeros(shape, dtype=kvdt, device=device)}
+    return {
+        "conv": torch.zeros((p, batch, cfg.ssm_conv_width - 1, cfg.d_inner),
+                            dtype=kvdt, device=device),
+        "ssm": torch.zeros((p, batch, cfg.d_inner, cfg.ssm_state_dim),
+                           dtype=torch.float32, device=device),
+    }
 
 
 def init_cache(cfg, batch: int, width: int, device="cpu"):

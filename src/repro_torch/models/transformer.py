@@ -1,34 +1,36 @@
-"""Decoder-only LM stack for the dense families: the port of
-``repro.models.transformer``.
+"""Decoder-only LM stack for the dense, SSM and hybrid families: the port
+of ``repro.models.transformer``.
 
 Parameters keep the reference's nesting (``{"embed", "slots": {"slot{i}":
 ...}, "final_norm", ["lm_head"]}``), with each period-slot's parameters
 stacked along a leading periods axis; where the reference scans over that
-axis, the port runs a Python loop. A ``moe`` or ``mamba`` slot raises
-``NotImplementedError``: those families come with later slices of the port.
+axis, the port runs a Python loop. A slot's mixer is attention or mamba, so
+a period may mix both (jamba's 7 mamba + 1 attention). A ``moe`` FFN and the
+encoder-decoder family raise ``NotImplementedError``: they come with a later
+slice of the port.
 
-Entry points: ``forward`` (full sequence), ``prefill`` (build a ring KV
-cache + last-token logits), ``decode_step`` (one token against the cache,
-which it updates in place).
+Entry points: ``forward`` (full sequence), ``prefill`` (build the cache:
+a ring KV cache per attention slot, the (conv, ssm) state per mamba slot,
++ last-token logits), ``decode_step`` (one token against the cache, which
+it updates in place).
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.models import layers as L
+from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.kvcache import SSM_ITEM, init_cache
+from repro_torch.models.kvcache import init_cache
 
 MOE_ITEM = "ROADMAP Queue 1 item 3 (MoE, encoder-decoder and training)"
 
 
 def check_ported(cfg: ModelConfig) -> None:
-    """Raise for a family whose layers the port does not have yet."""
+    """Raise for a family whose layers the port does not have yet: MoE
+    FFNs and encoder-decoder models (attention and mamba mixers are
+    ported)."""
     for slot in cfg.block_pattern():
-        if slot.mixer != "attn":
-            raise NotImplementedError(
-                f"{cfg.name}: {slot.mixer} layers are not ported yet; see "
-                f"{SSM_ITEM}")
         if slot.ffn == "moe":
             raise NotImplementedError(
                 f"{cfg.name}: MoE layers are not ported yet; see {MOE_ITEM}")
@@ -43,8 +45,11 @@ def check_ported(cfg: ModelConfig) -> None:
 # --------------------------------------------------------------------------- #
 
 def _init_slot(gen, cfg: ModelConfig, slot, dtype):
-    p = {"norm1": L.init_norm(cfg.d_model, cfg.norm_type, dtype, gen.device),
-         "attn": L.init_attention(gen, cfg, dtype)}
+    p = {"norm1": L.init_norm(cfg.d_model, cfg.norm_type, dtype, gen.device)}
+    if slot.mixer == "attn":
+        p["attn"] = L.init_attention(gen, cfg, dtype)
+    else:
+        p["mamba"] = ssm_lib.init_mamba(gen, cfg, dtype)
     if slot.ffn is not None:
         p["norm2"] = L.init_norm(cfg.d_model, cfg.norm_type, dtype,
                                  gen.device)
@@ -90,18 +95,25 @@ def _period(tree, p: int):
 
 def _apply_slot(slot_params, x, cfg: ModelConfig, slot, positions, cdtype,
                 cache=None, pos=None):
-    """One layer: pre-norm attention + residual, then pre-norm FFN +
-    residual. Returns (x, new_cache)."""
+    """One layer: pre-norm mixer (attention or mamba) + residual, then
+    pre-norm FFN + residual. Returns (x, new_cache): an attention slot's
+    (k, v) (of this segment without ``cache``; the ring, updated in place,
+    with it), a mamba slot's new {"conv", "ssm"} state."""
     h = L.apply_norm(x, slot_params["norm1"], cfg.norm_type, cfg.norm_eps)
-    kv = None if cache is None else (cache["k"], cache["v"])
-    out, new_kv = L.attention_block(slot_params["attn"], h, cfg, positions,
-                                    cache=kv, pos=pos, compute_dtype=cdtype)
+    if slot.mixer == "attn":
+        kv = None if cache is None else (cache["k"], cache["v"])
+        out, new_cache = L.attention_block(slot_params["attn"], h, cfg,
+                                           positions, cache=kv, pos=pos,
+                                           compute_dtype=cdtype)
+    else:
+        out, new_cache = ssm_lib.mamba_forward(slot_params["mamba"], h, cfg,
+                                               cdtype, state=cache)
     x = x + out
     if slot.ffn is not None:
         h2 = L.apply_norm(x, slot_params["norm2"], cfg.norm_type,
                           cfg.norm_eps)
         x = x + L.mlp_block(slot_params["mlp"], h2, cfg.mlp_type, cdtype)
-    return x, new_kv
+    return x, new_cache
 
 
 def _default_positions(cfg: ModelConfig, batch, seq, device, offset=0):
@@ -130,10 +142,10 @@ def _head(params, x, cfg: ModelConfig, cdtype):
 
 def forward(params, tokens, cfg: ModelConfig, positions=None,
             input_embeds=None, mode: str = "eval"):
-    """Full-sequence forward. Returns (logits [B,S,V], aux_loss); the dense
-    families have no auxiliary loss, so it is a float32 zero. ``mode`` is
-    kept for the reference's signature: rematerialisation is a training
-    matter and the port runs forward only."""
+    """Full-sequence forward. Returns (logits [B,S,V], aux_loss); without
+    MoE layers there is no auxiliary loss, so it is a float32 zero.
+    ``mode`` is kept for the reference's signature: rematerialisation is a
+    training matter and the port runs forward only."""
     check_ported(cfg)
     cdtype = L.torch_dtype(cfg.compute_dtype)
     x = _embed_input(params, tokens, input_embeds, cdtype)
@@ -167,8 +179,10 @@ def to_ring(kv_seg, width: int):
 
 def prefill(params, tokens, cfg: ModelConfig, cache_width: int,
             positions=None, input_embeds=None):
-    """Run the prompt, build a ring KV cache of ``cache_width`` slots.
-    Returns (last-token logits [B,V], cache)."""
+    """Run the prompt, build a ring KV cache of ``cache_width`` slots for
+    each attention slot and the final (conv, ssm) state of each mamba slot
+    (conv in the kv dtype, ssm float32). Returns (last-token logits [B,V],
+    cache)."""
     check_ported(cfg)
     cdtype = L.torch_dtype(cfg.compute_dtype)
     x = _embed_input(params, tokens, input_embeds, cdtype)
@@ -180,11 +194,16 @@ def prefill(params, tokens, cfg: ModelConfig, cache_width: int,
     for p in range(cfg.num_periods()):
         sliced = _period(params["slots"], p)
         for i, slot in enumerate(pattern):
-            x, (k, v) = _apply_slot(sliced[f"slot{i}"], x, cfg, slot,
-                                    positions, cdtype)
+            x, new_cache = _apply_slot(sliced[f"slot{i}"], x, cfg, slot,
+                                       positions, cdtype)
             entry = cache[f"slot{i}"]
-            entry["k"][p] = to_ring(k, cache_width)
-            entry["v"][p] = to_ring(v, cache_width)
+            if slot.mixer == "attn":
+                k, v = new_cache
+                entry["k"][p] = to_ring(k, cache_width)
+                entry["v"][p] = to_ring(v, cache_width)
+            else:
+                entry["conv"][p] = new_cache["conv"]   # cast to the kv dtype
+                entry["ssm"][p] = new_cache["ssm"]
     logits = _head(params, x[:, -1:], cfg, cdtype)[:, 0]
     return logits, cache
 
@@ -196,8 +215,9 @@ def prefill(params, tokens, cfg: ModelConfig, cache_width: int,
 def decode_step(params, token, pos: int, cache, cfg: ModelConfig,
                 positions=None):
     """One decode step. token: [B,1]; pos: absolute position (int). The
-    cache is updated IN PLACE (one row per layer at slot pos % W) and
-    returned. Returns (logits [B,V], cache)."""
+    cache is updated IN PLACE (an attention layer's row at slot pos % W, a
+    mamba layer's conv and ssm state) and returned. Returns (logits [B,V],
+    cache)."""
     check_ported(cfg)
     cdtype = L.torch_dtype(cfg.compute_dtype)
     x = _embed_input(params, token, None, cdtype)
@@ -209,8 +229,11 @@ def decode_step(params, token, pos: int, cache, cfg: ModelConfig,
         sliced = _period(params["slots"], p)
         for i, slot in enumerate(pattern):
             entry = cache[f"slot{i}"]
-            x, _ = _apply_slot(sliced[f"slot{i}"], x, cfg, slot, positions,
-                               cdtype, cache={"k": entry["k"][p],
-                                              "v": entry["v"][p]}, pos=pos)
+            x, new_cache = _apply_slot(sliced[f"slot{i}"], x, cfg, slot,
+                                       positions, cdtype,
+                                       cache=_period(entry, p), pos=pos)
+            if slot.mixer == "mamba":
+                entry["conv"][p] = new_cache["conv"]
+                entry["ssm"][p] = new_cache["ssm"]
     logits = _head(params, x, cfg, cdtype)[:, 0]
     return logits, cache

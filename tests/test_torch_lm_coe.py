@@ -1,5 +1,8 @@
 """The port's LM-expert router against the JAX package's
-``examples/lm_coe_router.py``, at the example's smoke width on the CPU.
+``examples/lm_coe_router.py``, at the example's smoke width on the CPU, with
+the experts of the example (StarCoder2-3B's smoke config) and with
+Falcon-Mamba-7B's smoke config swapped into the example's ``cfg`` as
+``--arch falcon_mamba_7b`` swaps it into the port's.
 
 The seven experts carry the example's own weights (``init_params`` with
 PRNG keys 0-5 and 99), converted with ``params_from_reference``; the
@@ -31,24 +34,40 @@ EXAMPLE = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "examples", "lm_coe_router.py")
 
 
-@pytest.fixture(scope="module")
-def example():
+def load_example(arch=None):
+    """A fresh copy of the example module (cfg and lm_apply defined, main()
+    unrun), computing in float32, with ``arch``'s smoke config swapped in
+    for its experts' when given. lm_apply reads the module's cfg when it is
+    first traced."""
     spec = importlib.util.spec_from_file_location("lm_coe_router_example",
                                                   EXAMPLE)
     mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)      # defines cfg and lm_apply; main() unrun
-    # lm_apply reads the module's cfg when it is first traced
+    spec.loader.exec_module(mod)
+    if arch is not None:
+        from repro.configs import get_config, smoke_config
+
+        mod.cfg = dataclasses.replace(smoke_config(get_config(arch)),
+                                      remat=False)
     mod.cfg = dataclasses.replace(mod.cfg, compute_dtype="float32")
     return mod
 
 
-@pytest.fixture(scope="module")
-def weights(example):
+def example_weights(example):
     from repro.models import transformer as jt
 
     seeds = dict(zip(router.expert_ids(), [*range(6), 99]))
     return {eid: jt.init_params(jax.random.PRNGKey(seed), example.cfg)
             for eid, seed in seeds.items()}
+
+
+@pytest.fixture(scope="module")
+def example():
+    return load_example()
+
+
+@pytest.fixture(scope="module")
+def weights(example):
+    return example_weights(example)
 
 
 def test_config_is_the_examples_with_the_kernel_path(example):
@@ -64,7 +83,37 @@ def test_config_is_the_examples_with_the_kernel_path(example):
 
 
 def test_router_serves_every_prompt_like_the_example(example, weights):
-    cfg = dataclasses.replace(router.lm_config("smoke"),
+    check_router(example, weights, "starcoder2_3b")
+
+
+def test_falcon_mamba_router_serves_every_prompt_like_the_example():
+    """``--arch falcon_mamba_7b``: every expert forward runs the selective
+    scan on the kernel path (on the CPU its plain version), and the tokens
+    are those of the example with the same config swapped in."""
+    example = load_example("falcon_mamba_7b")
+    assert example.cfg.family == "ssm"
+    check_router(example, example_weights(example), "falcon_mamba_7b")
+
+
+def test_falcon_mamba_config():
+    cfg = router.lm_config("smoke", arch="falcon_mamba_7b")
+    assert cfg.attn_impl == "pallas" and cfg.param_dtype == "float32"
+    assert dataclasses.asdict(dataclasses.replace(
+        cfg, attn_impl="xla", compute_dtype="float32")) \
+        == dataclasses.asdict(load_example("falcon_mamba_7b").cfg)
+    full = router.lm_config("full", layers=2, arch="falcon_mamba_7b")
+    assert (full.d_model, full.d_inner, full.ssm_state_dim, full.dt_rank,
+            full.ssm_conv_width, full.vocab_size, full.num_layers,
+            full.param_dtype, full.tie_embeddings) == \
+        (4096, 8192, 16, 256, 4, 65024, 2, "bfloat16", True)
+    with pytest.raises(ValueError, match="arch must be one of"):
+        router.lm_config("smoke", arch="mixtral_8x22b")
+
+
+def check_router(example, weights, arch):
+    """Both policies serve all 90 prompts; every request's result and its
+    safety follow-up's equal the example's lm_apply chain on its tokens."""
+    cfg = dataclasses.replace(router.lm_config("smoke", arch=arch),
                               compute_dtype="float32")
     params = {eid: params_from_reference(jax.tree.map(np.asarray, p))
               for eid, p in weights.items()}
@@ -116,8 +165,18 @@ def test_router_serves_every_prompt_like_the_example(example, weights):
 
 def test_cli_reports_both_policies(capsys):
     report = router.main(["--device", "cpu", "--requests", "12"])
+    assert report["arch"] == "starcoder2_3b"
     assert [p["policy"] for p in report["policies"]] == [
         COSERVE.name, SAMBA_PARALLEL.name]
     assert all(p["completed"] == 12 for p in report["policies"])
     assert report["layers"] == 2 and not report["layers_cut"]
+    assert capsys.readouterr().out.count("makespan_s") == 2
+
+
+def test_cli_serves_falcon_mamba_experts(capsys):
+    report = router.main(["--device", "cpu", "--requests", "12", "--arch",
+                          "falcon_mamba_7b", "--layers", "1"])
+    assert report["arch"] == "falcon_mamba_7b"
+    assert report["layers"] == 1 and report["layers_cut"]
+    assert all(p["completed"] == 12 for p in report["policies"])
     assert capsys.readouterr().out.count("makespan_s") == 2
