@@ -9,20 +9,23 @@ Phases, each of which ends the run with a nonzero exit when it fails:
 2. build: ``nvcc`` compiles every kernel of the port from the checkout,
    one compiler per source, all started together;
 3. decode kernel vs plain: ``decode_attention`` against
-   ``decode_attention_ref`` on the card at the serving geometry, at
-   phi4-mini's and starcoder2-3b's attention geometry and at the rings the
-   transformer's decode uses, with its time, its bound, the plain version's
-   time and the time of ``scaled_dot_product_attention`` as a library
-   yardstick;
+   ``decode_attention_ref`` on the card at the serving geometry, a ring of
+   two splits, phi4-mini's and starcoder2-3b's attention geometry and the
+   rings the transformer's decode uses, with its time, its bound, the plain
+   version's time, the time of ``scaled_dot_product_attention`` as a
+   library yardstick and the profiler's kernels a call (one: the splits
+   combine in the same launch);
 4. serving with decode: ``repro_torch.launch.serve --mode real --decode``
    on the card, every decode step through the decode kernel;
 5. the same server with phi4-mini's ring geometry;
 6. ``--mode real`` and ``--mode online --engine real`` without decode;
 7. flash kernel vs plain: ``flash_attention`` against
    ``flash_attention_ref`` at starcoder2-3b's and phi4-mini's prefill, a
-   cached prefix, a sliding window, a ragged fp32 case, a non-causal one
-   and phase 9's 16-token batches in the layout the model hands it, with
-   the same timings and SDPA as the yardstick;
+   cached prefix, a sliding window, a ragged fp32 case, a non-causal one,
+   phase 9's 16-token batches in the layout the model hands it and query
+   lengths around the bf16 dispatch's crossover, with the same timings and
+   SDPA as the yardstick; where both bf16 kernels take the shape, each is
+   held against the plain version and the two are timed in turns;
 8. the transformer at StarCoder2-3B's full width: (a) 2 layers in float32,
    the kernels' path against the plain-torch path and greedy generation
    against teacher forcing; (b) all 30 layers with bf16 weights, a
@@ -95,6 +98,8 @@ GEOMETRIES = [
     # the rings of phase 8: (b) 4096 + 32 tokens in bf16, (a) 512 + 16 fp32
     ("starcoder2-3b decode bf16", 1, 24, 2, 128, 4128, 0, BF16, BF16),
     ("starcoder2-3b decode fp32, batch 2", 2, 24, 2, 128, 528, 0, F32, F32),
+    # the smallest ring the wrapper splits in two (three 64-slot tiles)
+    ("engine heads, two splits", 1, 4, 2, 64, 192, 0, F32, F32),
 ]
 REPORTED = ("phi4-mini bf16", "3W+17")   # the line the kernels JSON carries
 PHI4_RING = dict(num_heads=24, num_kv_heads=8, head_dim=128, width=4096,
@@ -156,9 +161,10 @@ def time_ms(fn, arg_sets, iters: int, graph: bool = True) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_split(fn, args, iters: int = 20) -> dict:
+def device_split(fn, args, names, iters: int = 20) -> dict:
     """Device time per call of each CUDA kernel ``fn`` launches (ms), from
-    ``torch.profiler``'s CUDA activity; empty if the tracer saw nothing."""
+    ``torch.profiler``'s CUDA activity, keyed by the first of ``names`` the
+    kernel's name holds; empty if the tracer saw nothing."""
     from torch.profiler import ProfilerActivity, profile
 
     fn(*args)
@@ -167,7 +173,6 @@ def device_split(fn, args, iters: int = 20) -> dict:
         for _ in range(iters):
             fn(*args)
         torch.cuda.synchronize()
-    names = ("decode_attention_kernel", "combine_kernel")
     return {next((n for n in names if n in e.key), e.key[:48]):
             e.device_time_total / iters / 1e3
             for e in prof.key_averages() if e.device_time_total > 0}
@@ -237,10 +242,17 @@ def kernel_vs_plain(da, ref):
                     "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                     "valid_slots": n_valid,
                     "reported": (label, pos_name) == REPORTED}
-            line["device_split_ms"] = device_split(
+            line["plan"] = dict(zip(("tile", "rows", "splits"), da.plan(
+                b, hkv, w, d, g, k.element_size(),
+                torch.cuda.get_device_properties(dev).multi_processor_count)))
+            line["device_split_ms"] = split = device_split(
                 lambda q, k, v: da.decode_attention(
-                    q, k, v, pos, window=window), sets[0])
+                    q, k, v, pos, window=window), sets[0],
+                ("decode_attention_kernel",))
             print(json.dumps(line), flush=True)
+            if split and list(split) != ["decode_attention_kernel"]:
+                raise AssertionError(f"decode_attention at {label} ran "
+                                     f"{list(split)}, not one kernel a call")
             lines.append(line)
     return lines
 
@@ -348,6 +360,10 @@ FLASH_GEOMETRIES = [
     # phase 9's forwards: 16-token prompts in batches padded to 1/2/4/8
     *((f"lm router, batch {b}", b, 24, 2, 16, 16, 128, BF16, True, 0,
        "bshd") for b in (1, 2, 4, 8)),
+    # query lengths around the bf16 dispatch's crossover (WGMMA_MIN_SEQ)
+    *((f"crossover S {s}", 1, 24, 2, s, s, 128, BF16, True, 0, "bshd")
+      for s in (64, 65, 96, 127, 256, 512)),
+    ("crossover S 256, D 64", 1, 24, 2, 256, 256, 64, BF16, True, 0, "bshd"),
 ]
 FLASH_REPORTED = "starcoder2-3b prefill"
 
@@ -404,6 +420,26 @@ def flash_vs_plain(fa, ref):
         ms = time_ms(kernel, sets, 20)
         eager_ms = time_ms(kernel, sets, 20, graph=False)
         plain_ms = time_ms(plain, sets[:1], 3)
+        # where both bf16 kernels take the shape: each against the plain
+        # version, then timed in turns (mma, wgmma, wgmma, mma)
+        kernels_ms, kernels_err = {}, {}
+        if dt == BF16 and d in fa.WGMMA_HEAD_DIMS:
+            for name in ("mma", "wgmma"):
+                out = fa.launch(q, k, v, causal=causal, window=window,
+                                kernel=name)
+                kernels_err[name] = (out.float()
+                                     - want.float()).abs().max().item()
+                if not torch.allclose(out.float(), want.float(), rtol=tol,
+                                      atol=tol):
+                    raise AssertionError(
+                        f"flash_attention's {name} kernel disagrees with the "
+                        f"plain version at {label}: max |err| "
+                        f"{kernels_err[name]} > tol {tol}")
+            for name in ("mma", "wgmma", "wgmma", "mma"):
+                kernels_ms.setdefault(name, []).append(time_ms(
+                    lambda q, k, v, name=name: fa.launch(
+                        q, k, v, causal=causal, window=window, kernel=name),
+                    sets, 20))
         # library yardstick: SDPA, causal by its own flag when S = T and
         # there is no window, else with the boolean mask made outside the
         # timing
@@ -442,6 +478,9 @@ def flash_vs_plain(fa, ref):
                 "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                 "visible_pairs": pairs,
                 "tflops": ops / (ms * 1e-3) / 1e12,
+                "route": fa.route(s, d, dt),
+                "kernels_in_turns_ms": kernels_ms,
+                "kernels_max_abs_err": kernels_err,
                 "reported": label == FLASH_REPORTED}
         print(json.dumps(line), flush=True)
         lines.append(line)
@@ -637,18 +676,21 @@ def transformer_phases(fa, da):
 
     # (b) the whole model: 30 layers, bf16 weights and compute
     cfg = dataclasses.replace(base, param_dtype="bfloat16")
+    routes = dict(fa.flash_attention.routes)
     summary_b = {"phase": "8b starcoder2-3b, 30 layers bf16",
                  **whole_model_run(cfg, (4, 5), kernels,
-                                   ("flash_bf16_kernel",),
-                                   ("decode_attention_kernel",
-                                    "combine_kernel"))}
+                                   ("flash_wgmma_kernel",
+                                    "flash_bf16_kernel"),
+                                   ("decode_attention_kernel",))}
     pre, dec = (summary_b["prefill_device_ms_by_kernel"],
                 summary_b["decode_step_device_ms_by_kernel"])
-    summary_b["prefill_flash_share"] = pre["flash_bf16_kernel"] / max(
+    summary_b["prefill_flash_share"] = (
+        pre["flash_wgmma_kernel"] + pre["flash_bf16_kernel"]) / max(
         sum(pre.values()), 1e-9)
-    summary_b["decode_attention_share"] = (
-        dec["decode_attention_kernel"] + dec["combine_kernel"]) / max(
+    summary_b["decode_attention_share"] = dec["decode_attention_kernel"] / max(
         sum(dec.values()), 1e-9)
+    summary_b["flash_routes"] = {k: v - routes[k] for k, v in
+                                 fa.flash_attention.routes.items()}
     print(json.dumps(summary_b), flush=True)
     n = cfg.num_layers
     if summary_b["launches_prefill"]["flash_attention"] != n or \
@@ -656,6 +698,11 @@ def transformer_phases(fa, da):
             != n * 32:
         raise AssertionError(f"launch counts {summary_b}: {n} flash per "
                              f"prefill and {n * 32} decode")
+    if summary_b["flash_routes"]["wgmma"] == 0 or \
+            summary_b["flash_routes"]["mma"] != 0:
+        raise AssertionError("the 4096-token prefills took "
+                             f"{summary_b['flash_routes']}: all should take "
+                             "the wgmma kernel")
     return summary_a, summary_b
 
 
@@ -702,6 +749,7 @@ def lm_router_phase(kernel, arch: str = "starcoder2_3b", layers: int = 2):
             reqs = router.make_requests(rng, cfg)
             lm_apply.calls = 0
             kernel.launches = 0
+            routes = dict(getattr(kernel, "routes", {}))
             m = run_real(system, reqs)
             count = kernel.launches
             calls = lm_apply.calls
@@ -713,6 +761,9 @@ def lm_router_phase(kernel, arch: str = "starcoder2_3b", layers: int = 2):
                     "kernel_launches": count, "build_s": built_s,
                     "layers": cfg.num_layers, "d_model": cfg.d_model,
                     "param_dtype": cfg.param_dtype}
+            if routes:          # the flash kernel: which kernel each took
+                line["routes"] = {k: v - routes[k]
+                                  for k, v in kernel.routes.items()}
             print(json.dumps(line), flush=True)
             lines.append(line)
             if m.completed != len(reqs):

@@ -11,78 +11,83 @@
 // What bounds it: the bytes of K and V. Each K or V element read feeds 2*G
 // floating-point operations, a few per byte, while the card needs about 20
 // float32 operations per byte of device memory before compute is the limit.
+// At phi4-mini's ring (B 1, Hkv 8, W 4096, D 128, bf16) a call reads
+// 16.8 MB, 5 us at 3.35 TB/s: about as long as a launch, so the call has to
+// be one launch that keeps every SM's loads in flight from its start.
 // What the design does about that:
-//   * a block works for one (batch, kv head): the G query rows of the head
-//     share every K and V row it reads, so each element crosses device
-//     memory once;
-//   * the ring's tiles are dealt out round-robin to `splits` blocks per
-//     (batch, kv head), enough to fill the card's SMs even at B = 1; each
-//     writes its partial (m, l, acc) to a float32 workspace and a second
-//     kernel, one block per query row, combines them (with one split, the
-//     first writes the output);
-//   * slots the validity mask rejects are not read: a tile with no valid slot
-//     is skipped whole (early in a request, or outside a sliding window, most
-//     of the ring), and a masked slot inside a tile loads no K and a zero V row;
-//   * a tile of K and V rows is one contiguous run of memory: every thread
-//     issues its 16-byte loads of both before it waits on any, and the tile
-//     lands in shared memory as float32; scores are then one warp per slot
-//     (four query rows' reductions interleaved), and each thread owns
-//     (row, d) outputs whose accumulators stay in registers.
-// Later work: a second tile in flight while one is computed on, and one
-// launch for all the members of a decode step.
+//   * one launch: a grid of (batch x kv head, split, row chunk) blocks,
+//     about one wave (the wrapper plans tile, rows and splits, see
+//     ../decode_attention.py); a block works for up to four of the G query
+//     rows of one kv head, which share every K and V row it reads (the
+//     other chunks of a larger group re-read them from L2);
+//   * the ring's tiles are dealt round-robin to the splits; a tile holds
+//     `tile` slots (64, fewer for rows wider than 256 bytes, so a stage is
+//     at most 32 KB), and its K rows and V rows are two contiguous runs,
+//     each brought by one 1-D bulk copy (TMA) into a ring of three stages in
+//     the cache's own dtype, completion counted in bytes on an mbarrier:
+//     the block issues its first three tiles' copies at once, and tile i + 1
+//     lands while tile i is computed on; elements are widened to float32 in
+//     registers;
+//   * slots the validity mask rejects cost nothing: a tile with no valid
+//     slot is neither copied nor computed on (early in a request, or outside
+//     a sliding window, most of the ring), and a masked slot inside a tile
+//     gets no score and a zeroed V row, so whatever the cache holds there
+//     never reaches the sums;
+//   * scores are one warp per slot, four query rows at a time with their q
+//     elements in registers, the four sums reduced together (6 shuffles);
+//     P V gives each thread four consecutive d of one row over a run of
+//     the tile's slots (16-byte loads of p, 8- or 16-byte loads of V), the
+//     runs' sums added once after the last tile;
+//   * the splits combine in the same launch: each writes its (m, l, acc)
+//     to a float32 workspace, then takes a ticket from a per-(batch, kv
+//     head, chunk) counter (__threadfence + atomicAdd); the block that
+//     draws the last ticket adds all the splits in split order, so the
+//     result does not depend on which block finished last and is bitwise
+//     repeatable, and resets the counter to zero for the next call or
+//     graph replay. The counters are a zero-initialised array of this
+//     library, one per device; two calls must not run at once on two
+//     streams of one device.
+// Later work: one launch for all the members of a decode step (a per-row
+// pos); the combine's reads of the partials are latency-bound chains.
 //
 // Plain C interface, loaded with ctypes (see ../decode_attention.py):
-//   int coserve_decode_attention_splits(B, Hkv, W, sm_count)
-//     -> blocks per (batch, kv head); the caller allocates a float32
-//        workspace of B * Hkv * splits * (G * D + 2 * G) when splits > 1
 //   int coserve_decode_attention(q, k, v, out, workspace, B, H, Hkv, W, D,
-//                                pos, window, q_bf16, kv_bf16, splits, stream)
-//     -> a cudaError_t; 0 means the launches were accepted.
+//                                pos, window, q_bf16, kv_bf16, tile, rows,
+//                                splits, stream)
+//     -> a cudaError_t; 0 means the launch was accepted. A block takes
+//        `rows` query rows, so a kv head's G rows make ceil(G / rows)
+//        chunks; with splits > 1 the caller passes a float32 workspace of
+//        B * Hkv * chunks * splits * (rows * D + 2 * rows).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <algorithm>
 #include <cmath>
+#include <cstdint>
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kTile = 64;     // ring slots per tile
-constexpr int kMaxOut = 16;   // accumulators per thread, so G * D <= 4096
-constexpr int kMaxLaneD = 8;  // D / 32 elements of a K row per lane, D <= 256
-constexpr int kLoads = 4;     // 16-byte loads of K and of V in flight a thread
-constexpr int kMaxSplits = 2048;  // blocks per (batch, kv head)
+constexpr int kMaxTile = 64;     // ring slots per tile
+constexpr int kStages = 3;       // tiles in flight
+constexpr int kMaxStageBytes = 32768;  // K and V of one tile
+constexpr int kMaxOut = 16;      // outputs a thread: rows * D <= 4096
+constexpr int kMaxQuads = kMaxOut / 4;  // four outputs a quad
+constexpr int kMaxLaneD = 8;     // D / 32 elements of a K row per lane
+constexpr int kMaxCombine = 16384;     // splits * rows combine weights
+constexpr int kMaxRows = 1 << 16;  // B * Hkv * chunks with a counter each
 constexpr float kNegInf = -1e30f;
-// the most dynamic shared memory a launch asks for: q (G*D <= 4096), the K
-// and V tiles (D <= 256), the scores (G <= 4096 / 32), m, l, alpha, slot flags
-constexpr int kMaxSmem = (4096 + 2 * kTile * 256 + (4096 / 32) * kTile +
-                          3 * (4096 / 32)) * 4 + kTile * 4;
+// the most dynamic shared memory a launch asks for: the barriers, the stages
+// (or the combine's weights, which reuse them), q (rows * D <= 4096), the
+// scores (rows <= 4096 / 32 of a tile), m, l, alpha and slot flags
+constexpr int kMaxSmem = 128 + kStages * kMaxStageBytes + 4096 * 4 +
+                         (4096 / 32) * kMaxTile * 4 + 3 * (4096 / 32) * 4 +
+                         kMaxTile * 4 + 16;
 
-// 16 bytes of TKV as float32: 4 floats, or 8 from bfloat16 (the high half of
-// a float's bits, low element first)
-template <typename T>
-struct Vec;
-template <>
-struct Vec<float> {
-  static constexpr int n = 4;
-  __device__ static void unpack(const uint4& u, float* f) {
-    *reinterpret_cast<float4*>(f) = make_float4(
-        __uint_as_float(u.x), __uint_as_float(u.y), __uint_as_float(u.z),
-        __uint_as_float(u.w));
-  }
-};
-template <>
-struct Vec<__nv_bfloat16> {
-  static constexpr int n = 8;
-  __device__ static void unpack(const uint4& u, float* f) {
-    reinterpret_cast<float4*>(f)[0] = make_float4(
-        __uint_as_float(u.x << 16), __uint_as_float(u.x & 0xffff0000u),
-        __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xffff0000u));
-    reinterpret_cast<float4*>(f)[1] = make_float4(
-        __uint_as_float(u.z << 16), __uint_as_float(u.z & 0xffff0000u),
-        __uint_as_float(u.w << 16), __uint_as_float(u.w & 0xffff0000u));
-  }
-};
+// one ticket counter per (batch, kv head, chunk); zero at load, reset by
+// each call
+__device__ unsigned int g_tickets[kMaxRows];
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
@@ -98,6 +103,23 @@ __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);  // round to nearest even, as astype does
 }
 
+// a[0..3] += p * v[0..3], four elements of a row in one load
+__device__ __forceinline__ void fma4(float* a, float p, const float* v) {
+  const float4 x = *reinterpret_cast<const float4*>(v);
+  a[0] += p * x.x;
+  a[1] += p * x.y;
+  a[2] += p * x.z;
+  a[3] += p * x.w;
+}
+__device__ __forceinline__ void fma4(float* a, float p,
+                                     const __nv_bfloat16* v) {
+  const uint2 x = *reinterpret_cast<const uint2*>(v);
+  a[0] += p * __uint_as_float(x.x << 16);
+  a[1] += p * __uint_as_float(x.x & 0xffff0000u);
+  a[2] += p * __uint_as_float(x.y << 16);
+  a[3] += p * __uint_as_float(x.y & 0xffff0000u);
+}
+
 __device__ __forceinline__ float warp_sum(float x) {
   for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
   return x;
@@ -109,87 +131,160 @@ __device__ __forceinline__ float warp_max(float x) {
   return x;
 }
 
-// Slot `slot` holds absolute position pos - ((pos - slot) mod W); C's % truncates,
-// so the remainder is brought back to [0, W) by hand.
-__device__ __forceinline__ bool slot_valid(long long pos, int slot, int width,
-                                           int window) {
-  long long m = (pos - slot) % width;
+// Slot `slot` holds absolute position pos - m, m = (pos - slot) mod W, so
+// it is valid when m <= pos and, with a window, m < window; `pos_mod` is
+// pos mod W (floor), worked out once, so that m needs no 64-bit division.
+__device__ __forceinline__ bool slot_valid(long long pos, int pos_mod,
+                                           int slot, int width, int window) {
+  int m = pos_mod - slot;
   if (m < 0) m += width;
-  const long long abs_pos = pos - m;
-  return abs_pos >= 0 && (window == 0 || pos - abs_pos < window);
+  return m <= pos && (window == 0 || m < window);
 }
 
-// Rows [t0, t0 + tn) of K and V into shared memory as float32, masked rows
-// as zeros. The rows are contiguous, so the tile is tn * D / Vec::n 16-byte
-// vectors; each thread issues kLoads of K and kLoads of V before it unpacks.
+// Whether some slot of [t0, t1) is valid. The valid slots are those with
+// (pos - slot) mod W below lim = min(pos + 1, window): the cyclic run
+// [lo, lo + lim) mod W with lo = (pos - lim + 1) mod W. With no valid slot
+// at all (pos < 0) every slot takes part, as in the TPU kernel.
+__device__ __forceinline__ bool tile_has_valid(long long pos, int width,
+                                               int window, int t0, int t1) {
+  if (pos < 0) return true;
+  long long lim = pos + 1;
+  if (window && window < lim) lim = window;
+  if (lim >= width) return true;
+  long long lo = (pos - lim + 1) % width;
+  if (lo < 0) lo += width;
+  const long long hi = lo + lim;  // < 2 W
+  return (t0 < hi && t1 > lo) || (t0 + width < hi && t1 + width > lo);
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t a = smem_addr(bar);
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// `bytes` contiguous bytes from global to shared memory by one bulk copy,
+// counted on `bar`; both addresses and the size are multiples of 16.
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// The K and V rows of tile `tile` into stage `st`: one arrival with the
+// byte count, then the two copies. Issued by one thread.
 template <typename TKV>
-__device__ __forceinline__ void load_tiles(const TKV* k_rows,
-                                           const TKV* v_rows, float* k_s,
-                                           float* v_s, const int* ok_s,
-                                           int tn, int D, int tid) {
-  constexpr int V = Vec<TKV>::n;
-  const int n_vec = tn * D / V;
-  const uint4* k4 = reinterpret_cast<const uint4*>(k_rows);
-  const uint4* v4 = reinterpret_cast<const uint4*>(v_rows);
-  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
-  for (int base = 0; base < n_vec; base += kThreads * kLoads) {
-    uint4 kb[kLoads], vb[kLoads];
-#pragma unroll
-    for (int u = 0; u < kLoads; ++u) {
-      const int c = base + u * kThreads + tid;
-      const bool use = c < n_vec && ok_s[c * V / D];
-      kb[u] = use ? __ldg(k4 + c) : zero;
-      vb[u] = use ? __ldg(v4 + c) : zero;
-    }
-#pragma unroll
-    for (int u = 0; u < kLoads; ++u) {
-      const int c = base + u * kThreads + tid;
-      if (c < n_vec) {
-        Vec<TKV>::unpack(kb[u], k_s + c * V);
-        Vec<TKV>::unpack(vb[u], v_s + c * V);
-      }
-    }
-  }
+__device__ __forceinline__ void issue_tile(const TKV* k_blk, const TKV* v_blk,
+                                           TKV* k_st, TKV* v_st,
+                                           uint64_t* bar, int tile_slots,
+                                           int tile, int width, int D) {
+  const int t0 = tile * tile_slots;
+  const int tn = min(tile_slots, width - t0);
+  const uint32_t bytes = (uint32_t)tn * D * sizeof(TKV);
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_addr(bar)),
+      "r"(2 * bytes)
+      : "memory");
+  bulk_copy(k_st, k_blk + (size_t)t0 * D, bytes, bar);
+  bulk_copy(v_st, v_blk + (size_t)t0 * D, bytes, bar);
 }
 
 template <typename TQ, typename TKV>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 2)
     decode_attention_kernel(const TQ* __restrict__ q,
                             const TKV* __restrict__ k,
                             const TKV* __restrict__ v, TQ* __restrict__ out,
                             float* __restrict__ ws, int num_heads,
                             int num_kv_heads, int width, int head_dim,
-                            long long pos, int window, float scale) {
-  extern __shared__ __align__(16) float smem[];
-  const int G = num_heads / num_kv_heads;
+                            long long pos, int window, float scale,
+                            int tile_slots, int group_rows,
+                            int stage_bytes) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  const int kv_rows = num_heads / num_kv_heads;  // query rows of a kv head
+  const int gc = blockIdx.z;                     // this block's chunk of them
+  const int G = min(group_rows, kv_rows - gc * group_rows);  // its rows
   const int D = head_dim;
-  float* q_s = smem;             // [G, D] query rows, pre-scaled
-  float* k_s = q_s + G * D;      // [kTile, D] this tile's K rows
-  float* v_s = k_s + kTile * D;  // [kTile, D] this tile's V rows
-  float* p_s = v_s + kTile * D;  // [G, kTile] scores, then probabilities
-  float* m_s = p_s + G * kTile;  // [G] running max
-  float* l_s = m_s + G;          // [G] running sum
-  float* a_s = l_s + G;          // [G] this tile's rescale factor
-  int* ok_s = reinterpret_cast<int*>(a_s + G);  // [kTile] slot is read
+  const int splits = gridDim.y;
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem_raw);  // [kStages]
+  unsigned char* stage0 = smem_raw + 128;
+  // the stages, or after the last tile the combine's weights [G][splits]
+  const int ring_bytes =
+      (max(kStages * stage_bytes, (splits > 1 ? splits * G + G : 0) * 4) +
+       15) & ~15;
+  float* q_s = reinterpret_cast<float*>(stage0 + ring_bytes);  // [G, D]
+  float* p_s = q_s + G * D;           // [G, tile] scores, then probabilities
+  float* m_s = p_s + G * tile_slots;  // [G] running max
+  float* l_s = m_s + G;               // [G] running sum
+  float* a_s = l_s + G;               // [G] this tile's rescale factor
+  int* ok_s = reinterpret_cast<int*>(a_s + G);  // [tile] slot is read
+  int* last_s = ok_s + tile_slots;              // this block combines
 
   const int bh = blockIdx.x;  // b * Hkv + kv head
+  const int bhc = bh * gridDim.z + gc;  // (batch, kv head, row chunk)
   const int split = blockIdx.y;
-  const int splits = gridDim.y;
   const int b = bh / num_kv_heads;
   const int kvh = bh - b * num_kv_heads;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const size_t row0 = (size_t)b * num_heads + (size_t)kvh * G;
+  const size_t row0 = (size_t)b * num_heads + (size_t)kvh * kv_rows +
+                      (size_t)gc * group_rows;
   const TQ* q_blk = q + row0 * D;
   const TKV* k_blk = k + (size_t)bh * width * D;
   const TKV* v_blk = v + (size_t)bh * width * D;
   const int n_out = G * D;
   const int nv = D / 32;
-  const int n_tiles = (width + kTile - 1) / kTile;
-  // with no valid slot at all (pos < 0) every slot takes part, as in the TPU
-  // kernel, and the row averages v
+  const int n_tiles = (width + tile_slots - 1) / tile_slots;
   const bool read_all = pos < 0;
+  const int pos_mod = (int)(((pos % width) + width) % width);
+  auto stage_k = [&](int st) {
+    return reinterpret_cast<TKV*>(stage0 + st * stage_bytes);
+  };
+  auto stage_v = [&](int st) {
+    return reinterpret_cast<TKV*>(stage0 + st * stage_bytes +
+                                  stage_bytes / 2);
+  };
+  // this split's tiles, in order: split, split + splits, ..., skipping the
+  // tiles with no valid slot (every thread walks the same sequence)
+  auto next_tile = [&](int t) {
+    while (t < n_tiles &&
+           !tile_has_valid(pos, width, window, t * tile_slots,
+                           min(width, (t + 1) * tile_slots)))
+      t += splits;
+    return t;
+  };
+
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s)
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(
+                       smem_addr(full + s))
+                   : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  int issued = next_tile(split);  // thread 0's cursor: the next to copy
+  if (tid == 0)
+    for (int s = 0; s < kStages && issued < n_tiles; ++s) {
+      issue_tile(k_blk, v_blk, stage_k(s), stage_v(s), full + s, tile_slots,
+                 issued, width, D);
+      issued = next_tile(issued + splits);
+    }
 
   for (int i = tid; i < n_out; i += kThreads)
     q_s[i] = to_float(q_blk[i]) * scale;
@@ -197,70 +292,88 @@ __global__ void __launch_bounds__(kThreads)
     m_s[g] = kNegInf;
     l_s[g] = 0.f;
   }
-  float acc[kMaxOut];
+  // P V: a thread owns four consecutive d of one row (a "quad", n_out / 4
+  // of them) over one of `groups` runs of a tile's slots; the groups' sums
+  // are added once, after the last tile
+  const int n_quads = n_out / 4;
+  const int groups = n_quads >= kThreads ? 1 : kThreads / n_quads;
+  const int group = tid / n_quads;
+  float acc[kMaxQuads][4];
 #pragma unroll
-  for (int r = 0; r < kMaxOut; ++r) acc[r] = 0.f;
-  __syncthreads();
+  for (int r = 0; r < kMaxQuads; ++r)
+    acc[r][0] = acc[r][1] = acc[r][2] = acc[r][3] = 0.f;
 
-  for (int tile = split; tile < n_tiles; tile += splits) {
-    const int t0 = tile * kTile;
-    const int tn = min(kTile, width - t0);
+  int j = 0;  // tiles done
+  for (int tile = next_tile(split); tile < n_tiles;
+       tile = next_tile(tile + splits), ++j) {
+    const int st = j % kStages;
+    const int t0 = tile * tile_slots;
+    const int tn = min(tile_slots, width - t0);
     const bool mine =
-        tid < tn && (read_all || slot_valid(pos, t0 + tid, width, window));
-    if (tid < kTile) ok_s[tid] = mine;
-    if (!__syncthreads_or(mine)) continue;  // nothing to read in this tile
-
-    // a masked row is zero: its weight is zero, or is wiped by a later
-    // rescale, so it only has to be finite
-    load_tiles(k_blk + (size_t)t0 * D, v_blk + (size_t)t0 * D, k_s, v_s,
-               ok_s, tn, D, tid);
+        tid < tn &&
+        (read_all || slot_valid(pos, pos_mod, t0 + tid, width, window));
+    if (tid < tile_slots) ok_s[tid] = mine;
+    const TKV* k_s = stage_k(st);
+    TKV* v_s = stage_v(st);
+    mbar_wait(full + st, (j / kStages) & 1);
+    // a masked slot's V row is zeroed, so that whatever the cache holds
+    // there meets only zero weights
+    if (__syncthreads_count(mine) < tn)
+      for (int i = tid; i < tn * D; i += kThreads)
+        if (!ok_s[i / D]) v_s[i] = from_float<TKV>(0.f);
     __syncthreads();
 
-    // scores: one warp per slot, the lanes split D, four query rows'
-    // reductions interleaved
-    for (int t = warp; t < tn; t += kWarps) {
-      float* col = p_s + t;
-      if (!ok_s[t]) {
-        for (int g = lane; g < G; g += 32) col[g * kTile] = kNegInf;
-        continue;
-      }
-      const float* krow = k_s + t * D;
-      float kr[kMaxLaneD];
+    // scores: one warp per slot, the lanes split D; four query rows at a
+    // time, their q elements held in registers across the warp's slots,
+    // the four sums reduced together (reduce-scatter: 6 shuffles). With
+    // no valid slot at all (pos < 0) every score is -1e30, as in the
+    // reference, so the row averages v.
+    for (int g0 = 0; g0 < G; g0 += 4) {
+      float qr[4][kMaxLaneD];
 #pragma unroll
-      for (int j = 0; j < kMaxLaneD; ++j)
-        kr[j] = j < nv ? krow[lane + 32 * j] : 0.f;
-      for (int g0 = 0; g0 < G; g0 += 4) {
-        float s[4];
+      for (int u = 0; u < 4; ++u)
 #pragma unroll
-        for (int u = 0; u < 4; ++u) {
-          s[u] = 0.f;
-          if (g0 + u < G) {
-            const float* qr = q_s + (g0 + u) * D;
+        for (int jj = 0; jj < kMaxLaneD; ++jj)
+          qr[u][jj] = g0 + u < G && jj < nv
+                          ? q_s[(g0 + u) * D + lane + 32 * jj]
+                          : 0.f;
+      for (int t = warp; t < tn; t += kWarps) {
+        float sum;
+        if (!ok_s[t] || read_all) {
+          sum = kNegInf;
+        } else {
+          const TKV* krow = k_s + t * D;
+          float s[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
-            for (int j = 0; j < kMaxLaneD; ++j)
-              if (j < nv) s[u] += qr[lane + 32 * j] * kr[j];
+          for (int jj = 0; jj < kMaxLaneD; ++jj) {
+            if (jj < nv) {
+              const float kv = to_float(krow[lane + 32 * jj]);
+#pragma unroll
+              for (int u = 0; u < 4; ++u) s[u] += qr[u][jj] * kv;
+            }
           }
+          // lanes 0-15 keep rows 0, 1 and lanes 16-31 rows 2, 3; then
+          // lanes with bit 3 clear keep the first of those two
+          const bool h16 = lane & 16, h8 = lane & 8;
+          float a0 = h16 ? s[2] : s[0], a1 = h16 ? s[3] : s[1];
+          a0 += __shfl_xor_sync(0xffffffffu, h16 ? s[0] : s[2], 16);
+          a1 += __shfl_xor_sync(0xffffffffu, h16 ? s[1] : s[3], 16);
+          sum = h8 ? a1 : a0;
+          sum += __shfl_xor_sync(0xffffffffu, h8 ? a0 : a1, 8);
+          sum += __shfl_xor_sync(0xffffffffu, sum, 4);
+          sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+          sum += __shfl_xor_sync(0xffffffffu, sum, 1);
         }
-#pragma unroll
-        for (int o = 16; o > 0; o >>= 1) {
-#pragma unroll
-          for (int u = 0; u < 4; ++u)
-            s[u] += __shfl_xor_sync(0xffffffffu, s[u], o);
-        }
-        if (lane < 4 && g0 + lane < G) {
-          float mine_s = s[0];
-#pragma unroll
-          for (int u = 1; u < 4; ++u)
-            if (lane == u) mine_s = s[u];
-          col[(g0 + lane) * kTile] = mine_s;
-        }
+        // lanes 8 u hold row g0 + u
+        if ((lane & 7) == 0 && g0 + (lane >> 3) < G)
+          p_s[(g0 + (lane >> 3)) * tile_slots + t] = sum;
       }
     }
     __syncthreads();
 
     // online softmax: one warp per query row
     for (int g = warp; g < G; g += kWarps) {
-      float* row = p_s + g * kTile;
+      float* row = p_s + g * tile_slots;
       float mx = kNegInf;
       for (int t = lane; t < tn; t += 32) mx = fmaxf(mx, row[t]);
       mx = warp_max(mx);
@@ -282,30 +395,68 @@ __global__ void __launch_bounds__(kThreads)
     }
     __syncthreads();
 
-    // acc[g, d] = acc * alpha[g] + sum_t p[g, t] * v[t, d], four partial
-    // sums in flight
+    // acc[g, d..d+3] = acc * alpha[g] + sum_t p[g, t] * v[t, d..d+3] over
+    // this thread's run of slots, four slots a step (p as one 16-byte load)
+    if (group < groups) {
+      const int run = ((tn + groups - 1) / groups + 3) & ~3;
+      const int t_lo = group * run, t_hi = min(tn, t_lo + run);
 #pragma unroll
-    for (int r = 0; r < kMaxOut; ++r) {
-      const int o = tid + r * kThreads;
-      if (o < n_out) {
-        const int g = o / D;
-        const int d = o - g * D;
-        const float* prow = p_s + g * kTile;
-        const float* vcol = v_s + d;
-        float a0 = acc[r] * a_s[g], a1 = 0.f, a2 = 0.f, a3 = 0.f;
-        int t = 0;
-        for (; t + 4 <= tn; t += 4) {
-          a0 += prow[t] * vcol[t * D];
-          a1 += prow[t + 1] * vcol[(t + 1) * D];
-          a2 += prow[t + 2] * vcol[(t + 2) * D];
-          a3 += prow[t + 3] * vcol[(t + 3) * D];
+      for (int r = 0; r < kMaxQuads; ++r) {
+        const int quad = tid % n_quads + r * kThreads;
+        if (quad < n_quads && (r == 0 || groups == 1)) {
+          const int g = quad * 4 / D;
+          const int d = quad * 4 - g * D;
+          const float alpha = a_s[g];
+          float* a = acc[r];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) a[e] *= alpha;
+          const float* prow = p_s + g * tile_slots;
+          const TKV* vcol = v_s + d;
+          int t = t_lo;
+          for (; t + 4 <= t_hi; t += 4) {
+            const float4 p4 = *reinterpret_cast<const float4*>(prow + t);
+            fma4(a, p4.x, vcol + t * D);
+            fma4(a, p4.y, vcol + (t + 1) * D);
+            fma4(a, p4.z, vcol + (t + 2) * D);
+            fma4(a, p4.w, vcol + (t + 3) * D);
+          }
+          for (; t < t_hi; ++t) fma4(a, prow[t], vcol + t * D);
         }
-        for (; t < tn; ++t) a0 += prow[t] * vcol[t * D];
-        acc[r] = (a0 + a1) + (a2 + a3);
       }
     }
+    // every thread is done with stage st; its loads (and stores) of the
+    // stage are ordered before the next copy into it
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
     __syncthreads();
+    if (tid == 0 && issued < n_tiles) {
+      issue_tile(k_blk, v_blk, stage_k(st), stage_v(st), full + st,
+                 tile_slots, issued, width, D);
+      issued = next_tile(issued + splits);
+    }
   }
+
+  // the groups' sums, added in group order through shared memory (the
+  // stages are free now): fin[r] is output tid + r * kThreads
+  float* red_s = reinterpret_cast<float*>(stage0);  // [groups][G * D]
+  if (group < groups) {
+#pragma unroll
+    for (int r = 0; r < kMaxQuads; ++r) {
+      const int quad = tid % n_quads + r * kThreads;
+      if (quad < n_quads && (r == 0 || groups == 1))
+        *reinterpret_cast<float4*>(red_s + group * n_out + quad * 4) =
+            make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
+    }
+  }
+  __syncthreads();
+  float fin[kMaxOut];
+#pragma unroll
+  for (int r = 0; r < kMaxOut; ++r) {
+    const int o = tid + r * kThreads;
+    fin[r] = 0.f;
+    if (o < n_out)
+      for (int gr = 0; gr < groups; ++gr) fin[r] += red_s[gr * n_out + o];
+  }
+  __syncthreads();  // red_s is read before the combine reuses it
 
   if (splits == 1) {
     TQ* o_blk = out + row0 * D;
@@ -313,125 +464,119 @@ __global__ void __launch_bounds__(kThreads)
     for (int r = 0; r < kMaxOut; ++r) {
       const int o = tid + r * kThreads;
       if (o < n_out)
-        o_blk[o] = from_float<TQ>(acc[r] / fmaxf(l_s[o / D], 1e-30f));
+        o_blk[o] = from_float<TQ>(fin[r] / fmaxf(l_s[o / D], 1e-30f));
     }
     return;
   }
-  // partial of this split: acc [G, D], then m [G], then l [G]
-  float* part = ws + ((size_t)bh * splits + split) * (n_out + 2 * G);
+  // partial of this split: acc [G, D], then m [G], then l [G], each part
+  // sized for group_rows rows
+  const int m_off = group_rows * D, l_off = m_off + group_rows;
+  const size_t stride = (size_t)l_off + group_rows;
+  float* parts = ws + (size_t)bhc * splits * stride;
+  float* part = parts + split * stride;
 #pragma unroll
   for (int r = 0; r < kMaxOut; ++r) {
     const int o = tid + r * kThreads;
-    if (o < n_out) part[o] = acc[r];
+    if (o < n_out) part[o] = fin[r];
   }
   for (int g = tid; g < G; g += kThreads) {
-    part[n_out + g] = m_s[g];
-    part[n_out + G + g] = l_s[g];
+    part[m_off + g] = m_s[g];
+    part[l_off + g] = l_s[g];
   }
-}
-
-// out[g, d] = sum_s e^(m_s - M) acc_s / sum_s e^(m_s - M) l_s, M = max_s m_s:
-// the online softmax's own rescale, applied across the splits. One block per
-// (batch, kv head, query row): the split weights are worked out once in
-// shared memory, then each thread sums its d over the splits, sixteen
-// independent loads in flight.
-__device__ __forceinline__ float block_reduce(float x, float* red, bool max) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  x = max ? warp_max(x) : warp_sum(x);
-  __syncthreads();  // red may still be read by the previous reduction
-  if (lane == 0) red[warp] = x;
+  __threadfence();  // the partial is visible before the ticket is taken
   __syncthreads();
-  x = lane < kWarps ? red[lane] : (max ? kNegInf : 0.f);
-  return max ? warp_max(x) : warp_sum(x);
-}
+  if (tid == 0)
+    *last_s = atomicAdd(&g_tickets[bhc], 1u) == (unsigned)splits - 1;
+  __syncthreads();
+  if (!*last_s) return;
+  __threadfence();
 
-template <typename TQ>
-__global__ void __launch_bounds__(kThreads)
-    combine_kernel(const float* __restrict__ ws, TQ* __restrict__ out,
-                   int num_heads, int num_kv_heads, int head_dim,
-                   int splits) {
-  __shared__ float w_s[kMaxSplits];
-  __shared__ float red[kWarps];
-  const int G = num_heads / num_kv_heads;
-  const int D = head_dim;
-  const int n_out = G * D;
-  const size_t stride = (size_t)n_out + 2 * G;
-  const int bh = blockIdx.x;
-  const int g = blockIdx.y;
-  const int b = bh / num_kv_heads;
-  const int kvh = bh - b * num_kv_heads;
-  const int tid = threadIdx.x;
-  const float* parts = ws + (size_t)bh * splits * stride;
-
-  float m = kNegInf;
-  for (int s = tid; s < splits; s += kThreads) {
-    w_s[s] = parts[s * stride + n_out + g];
-    m = fmaxf(m, w_s[s]);
+  // the last split combines all of them, in split order:
+  // out[g, d] = sum_s e^(m_s - M) acc_s / sum_s e^(m_s - M) l_s, M = max_s m_s
+  float* w_s = reinterpret_cast<float*>(stage0);  // [G][splits]
+  float* den_s = w_s + G * splits;                // [G]
+  for (int g = warp; g < G; g += kWarps) {
+    float m = kNegInf;
+    for (int s = lane; s < splits; s += 32)
+      m = fmaxf(m, __ldcg(parts + s * stride + m_off + g));
+    m = warp_max(m);
+    float den = 0.f;
+    for (int s = lane; s < splits; s += 32) {
+      const float w = expf(__ldcg(parts + s * stride + m_off + g) - m);
+      w_s[g * splits + s] = w;
+      den += w * __ldcg(parts + s * stride + l_off + g);
+    }
+    // the lanes' partial sums in a fixed order, as every call adds them
+    den = warp_sum(den);
+    if (lane == 0) den_s[g] = den;
   }
-  m = block_reduce(m, red, true);
-  float den = 0.f;
-  for (int s = tid; s < splits; s += kThreads) {
-    const float w = expf(w_s[s] - m);
-    w_s[s] = w;
-    den += w * parts[s * stride + n_out + G + g];
+  __syncthreads();
+  // four outputs of the thread at a time, so that many loads of the
+  // partials are in flight together (an output past n_out reads a valid
+  // address and is not stored); each output adds the splits in split order
+  TQ* o_blk = out + row0 * D;
+  for (int o0 = tid; o0 < n_out; o0 += 4 * kThreads) {
+    int oc[4];
+    const float* w[4];
+    float num[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      oc[i] = min(o0 + i * kThreads, n_out - 1);
+      w[i] = w_s + (oc[i] / D) * splits;
+      num[i] = 0.f;
+    }
+#pragma unroll 8
+    for (int s = 0; s < splits; ++s) {
+      const float* part_s = parts + s * stride;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) num[i] += w[i][s] * __ldcg(part_s + oc[i]);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      if (o0 + i * kThreads < n_out)
+        o_blk[oc[i]] =
+            from_float<TQ>(num[i] / fmaxf(den_s[oc[i] / D], 1e-30f));
   }
-  den = block_reduce(den, red, false);  // its barriers publish w_s too
-
-  TQ* o_row = out + ((size_t)b * num_heads + (size_t)kvh * G + g) * D;
-  for (int d = tid; d < D; d += kThreads) {
-    const float* col = parts + (size_t)g * D + d;
-    float num = 0.f;
-#pragma unroll 16
-    for (int s = 0; s < splits; ++s) num += w_s[s] * col[s * stride];
-    o_row[d] = from_float<TQ>(num / fmaxf(den, 1e-30f));
-  }
+  if (tid == 0) g_tickets[bhc] = 0;  // ready for the next call
 }
 
 template <typename TQ, typename TKV>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
                    void* ws, int batch, int num_heads, int num_kv_heads,
                    int width, int head_dim, long long pos, int window,
-                   int splits, cudaStream_t stream) {
-  const int G = num_heads / num_kv_heads;
+                   int tile_slots, int group_rows, int splits,
+                   cudaStream_t stream) {
+  const int G = group_rows;  // the most rows a block takes
+  const int chunks = (num_heads / num_kv_heads + G - 1) / G;
+  const int stage_bytes = 2 * tile_slots * head_dim * (int)sizeof(TKV);
+  if (stage_bytes > kMaxStageBytes) return cudaErrorInvalidValue;
+  const size_t ring_bytes =
+      (std::max((size_t)kStages * stage_bytes,
+                (size_t)(splits > 1 ? splits * G + G : 0) * 4) +
+       15) & ~(size_t)15;
   const size_t smem =
-      sizeof(float) * ((size_t)G * head_dim + 2 * (size_t)kTile * head_dim +
-                       (size_t)G * kTile + 3 * (size_t)G) +
-      sizeof(int) * kTile;
+      128 + ring_bytes +
+      sizeof(float) * ((size_t)G * head_dim + (size_t)G * tile_slots +
+                       3 * (size_t)G) +
+      sizeof(int) * (tile_slots + 1);
+  if (smem > (size_t)kMaxSmem) return cudaErrorInvalidValue;
   auto kernel = decode_attention_kernel<TQ, TKV>;
   // once per instantiation (thread-safe static init), so that a launch does
   // nothing but launch: it can then be captured in a CUDA graph
   static const cudaError_t attr = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
   if (attr != cudaSuccess) return attr;
-  cudaError_t err;
   const float scale = (float)(1.0 / std::sqrt((double)head_dim));
-  kernel<<<dim3(batch * num_kv_heads, splits), kThreads, smem, stream>>>(
-      static_cast<const TQ*>(q), static_cast<const TKV*>(k),
-      static_cast<const TKV*>(v), static_cast<TQ*>(out),
-      static_cast<float*>(ws), num_heads, num_kv_heads, width, head_dim, pos,
-      window, scale);
-  err = cudaGetLastError();
-  if (err != cudaSuccess || splits == 1) return err;
-  combine_kernel<TQ><<<dim3(batch * num_kv_heads, G), kThreads, 0, stream>>>(
-      static_cast<const float*>(ws), static_cast<TQ*>(out), num_heads,
-      num_kv_heads, head_dim, splits);
+  kernel<<<dim3(batch * num_kv_heads, splits, chunks), kThreads, smem,
+           stream>>>(static_cast<const TQ*>(q), static_cast<const TKV*>(k),
+                     static_cast<const TKV*>(v), static_cast<TQ*>(out),
+                     static_cast<float*>(ws), num_heads, num_kv_heads, width,
+                     head_dim, pos, window, scale, tile_slots, group_rows,
+                     stage_bytes);
   return cudaGetLastError();
 }
 
 }  // namespace
-
-// Blocks per (batch, kv head): about four blocks per SM over the whole grid
-// (a block's tile is latency-bound, so several share an SM), never more than
-// the ring has tiles or the combine kernel takes.
-extern "C" int coserve_decode_attention_splits(int batch, int num_kv_heads,
-                                               int width, int sm_count) {
-  const int n_tiles = (width + kTile - 1) / kTile;
-  const int rows = batch * num_kv_heads;
-  int splits = (4 * sm_count + rows - 1) / rows;
-  if (splits > n_tiles) splits = n_tiles;
-  if (splits > kMaxSplits) splits = kMaxSplits;
-  return splits < 1 ? 1 : splits;
-}
 
 extern "C" int coserve_decode_attention(const void* q, const void* k,
                                         const void* v, void* out, void* ws,
@@ -439,27 +584,35 @@ extern "C" int coserve_decode_attention(const void* q, const void* k,
                                         int num_kv_heads, int width,
                                         int head_dim, long long pos,
                                         int window, int q_bf16, int kv_bf16,
+                                        int tile_slots, int group_rows,
                                         int splits, void* stream) {
+  const int G = num_kv_heads > 0 ? num_heads / num_kv_heads : 0;
+  const int chunks = group_rows > 0 ? (G + group_rows - 1) / group_rows : 0;
   if (batch <= 0 || num_kv_heads <= 0 || num_heads <= 0 ||
       num_heads % num_kv_heads != 0 || head_dim <= 0 || head_dim % 32 != 0 ||
       head_dim > 32 * kMaxLaneD || width <= 0 || window < 0 ||
-      (num_heads / num_kv_heads) * head_dim > kThreads * kMaxOut ||
-      splits < 1 || splits > (width + kTile - 1) / kTile ||
-      splits > kMaxSplits || (splits > 1 && ws == nullptr))
+      group_rows < 1 || group_rows > G ||
+      group_rows * head_dim > kThreads * kMaxOut || tile_slots < 16 ||
+      tile_slots > kMaxTile || tile_slots % 16 != 0 || splits < 1 ||
+      splits > (width + tile_slots - 1) / tile_slots || chunks > 65535 ||
+      (splits > 1 &&
+       (ws == nullptr || splits * group_rows > kMaxCombine ||
+        (long long)batch * num_kv_heads * chunks > kMaxRows)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (!q_bf16 && !kv_bf16)
     return (int)launch<float, float>(q, k, v, out, ws, batch, num_heads,
                                      num_kv_heads, width, head_dim, pos,
-                                     window, splits, s);
+                                     window, tile_slots, group_rows, splits,
+                                     s);
   if (q_bf16 && kv_bf16)
     return (int)launch<__nv_bfloat16, __nv_bfloat16>(
         q, k, v, out, ws, batch, num_heads, num_kv_heads, width, head_dim,
-        pos, window, splits, s);
+        pos, window, tile_slots, group_rows, splits, s);
   if (!q_bf16 && kv_bf16)
     return (int)launch<float, __nv_bfloat16>(
         q, k, v, out, ws, batch, num_heads, num_kv_heads, width, head_dim,
-        pos, window, splits, s);
+        pos, window, tile_slots, group_rows, splits, s);
   return (int)cudaErrorInvalidValue;
 }
 

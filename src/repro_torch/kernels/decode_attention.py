@@ -7,7 +7,9 @@ The kernel replaces the Pallas TPU kernel
 first use (``build.load_library``) and loaded with ``ctypes``. A tensor on
 the CPU takes the plain version (``ref.decode_attention_ref``); a CUDA
 tensor launches the kernel or raises. ``decode_attention.launches`` counts
-the launches.
+the launches: one a call, the combine of the splits included.
+
+``plan`` picks the kernel's tile and split counts from the shapes alone.
 """
 from __future__ import annotations
 
@@ -26,16 +28,47 @@ DTYPES = {(torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
           (torch.float32, torch.bfloat16)}
 MAX_HEAD_DIM = 256
 MAX_GROUP_ELEMS = 4096        # G * D: 256 threads x 16 accumulators
+MAX_TILE = 64                 # ring slots a tile
+STAGE_BYTES = 32768           # the K and V rows of one tile at most
+MAX_COMBINE = 16384           # splits x rows weights the combine holds
+MAX_ROWS = 1 << 16            # B x Hkv x row chunks the split counters cover
+# A block takes at most this many of a kv head's query rows, the grid aims
+# at this many blocks an SM (two fit at phi4-mini's ring), and a split walks
+# at least this many tiles.
+ROWS_PER_BLOCK = 4
+BLOCKS_PER_SM = 2
+MIN_TILES_PER_SPLIT = 2
+
+
+def plan(batch: int, num_kv_heads: int, width: int, head_dim: int,
+         group: int, kv_bytes: int, sm_count: int) -> tuple[int, int, int]:
+    """(tile, rows, splits) for a call: ``tile`` ring slots a tile (64, or
+    fewer so that a tile's K and V rows take at most ``STAGE_BYTES``);
+    ``rows`` of a kv head's ``group`` query rows a block (the group cut
+    into equal chunks of at most ``ROWS_PER_BLOCK``: a block's work on a
+    tile grows with its rows, while the chunks of one head re-read its
+    tiles from L2); and ``splits`` blocks per (batch, kv head, chunk), so
+    that the grid is about ``BLOCKS_PER_SM`` blocks on each SM while every
+    split has ``MIN_TILES_PER_SPLIT`` tiles to walk and the combine's
+    weights fit."""
+    tile = min(MAX_TILE, STAGE_BYTES // (2 * head_dim * kv_bytes))
+    n_tiles = -(-width // tile)
+    chunks = -(-group // ROWS_PER_BLOCK)
+    rows = -(-group // chunks)
+    blocks = batch * num_kv_heads * chunks
+    splits = min(-(-BLOCKS_PER_SM * sm_count // blocks),
+                 -(-n_tiles // MIN_TILES_PER_SPLIT), MAX_COMBINE // rows)
+    if blocks > MAX_ROWS:
+        splits = 1
+    return tile, rows, max(1, splits)
 
 
 def _bind(lib):
     fn = lib.coserve_decode_attention
     fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
-                   + [ctypes.c_longlong] + [ctypes.c_int] * 4
+                   + [ctypes.c_longlong] + [ctypes.c_int] * 6
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
-    lib.coserve_decode_attention_splits.argtypes = [ctypes.c_int] * 4
-    lib.coserve_decode_attention_splits.restype = ctypes.c_int
     lib.coserve_cuda_error_string.argtypes = [ctypes.c_int]
     lib.coserve_cuda_error_string.restype = ctypes.c_char_p
 
@@ -84,18 +117,20 @@ def decode_attention(q, k_cache, v_cache, pos, *, window: int = 0):
     hkv, w = k_cache.shape[1], k_cache.shape[2]
     g = h // hkv
     sms = torch.cuda.get_device_properties(q.device).multi_processor_count
-    splits = lib.coserve_decode_attention_splits(b, hkv, w, sms)
+    tile, rows, splits = plan(b, hkv, w, d, g, k_cache.element_size(), sms)
     out = torch.empty_like(q)
-    # partial (acc, m, l) of each split, combined by the second kernel
-    ws = torch.empty(b * hkv * splits * (g * d + 2 * g) if splits > 1 else 0,
-                     dtype=torch.float32, device=q.device)
+    # partial (acc, m, l) of each split, combined by the last split to end
+    chunks = -(-g // rows)
+    ws = torch.empty(b * hkv * chunks * splits * (rows * d + 2 * rows)
+                     if splits > 1 else 0, dtype=torch.float32,
+                     device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.coserve_decode_attention(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
             out.data_ptr(), ws.data_ptr() if splits > 1 else None, b, h, hkv,
             w, d, int(pos), int(window), int(q.dtype == torch.bfloat16),
-            int(k_cache.dtype == torch.bfloat16), splits, stream)
+            int(k_cache.dtype == torch.bfloat16), tile, rows, splits, stream)
     if rc != 0:
         raise RuntimeError(
             f"decode_attention kernel launch failed: CUDA error {rc} "

@@ -6,8 +6,13 @@ The kernel replaces the Pallas TPU kernel
 ``nvcc`` for ``sm_90a`` into a shared library with a plain C interface at
 first use (``build.load_library``) and loaded with ``ctypes``. A tensor on
 the CPU takes the plain version (``ref.flash_attention_ref``); a CUDA tensor
-launches the kernel or raises. ``flash_attention.launches`` counts the
-launches.
+launches a kernel or raises. ``flash_attention.launches`` counts the
+launches, ``flash_attention.routes`` them by kernel.
+
+The source holds three kernels, and ``route`` picks one by shape: float32
+goes to the CUDA-core kernel; bf16 goes to the wgmma + TMA kernel where it
+is the faster, else to the mma.sync kernel. That is dispatch between two
+hand-written kernels: either one launches or the call raises.
 """
 from __future__ import annotations
 
@@ -22,6 +27,27 @@ from repro_torch.kernels.ref import flash_attention_ref
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
 DTYPES = (torch.float32, torch.bfloat16)
 HEAD_DIMS = (32, 64, 96, 128)
+ROUTES = {"f32": 0, "mma": 1, "wgmma": 2}
+WGMMA_HEAD_DIMS = (64, 128)   # whole 64-column swizzled boxes
+# From this many query rows up the wgmma kernel takes bf16: up to 64 rows
+# both kernels run one q tile a head and the mma.sync kernel's 64-row tile
+# wastes less; past 64 it needs two tiles, and the wgmma kernel's one is
+# faster. chip_smoke.py phase 7, NVIDIA H100 80GB HBM3 at 700 W,
+# starcoder2-3b heads, B 1, mma.sync against wgmma in turns: S 16 0.0058
+# against 0.0064 ms, S 64 0.0072 against 0.0077, S 65 0.0089 against
+# 0.0075, S 127 0.0103 against 0.0088, S 512 0.0324 against 0.0157.
+WGMMA_MIN_SEQ = 65
+
+
+def route(s: int, d: int, dtype) -> str:
+    """The kernel a [B,H,s,d] query of ``dtype`` goes to: "f32" for
+    float32, else "wgmma" for head dims 64 and 128 from ``WGMMA_MIN_SEQ``
+    query rows up, else "mma"."""
+    if dtype == torch.float32:
+        return "f32"
+    if d in WGMMA_HEAD_DIMS and s >= WGMMA_MIN_SEQ:
+        return "wgmma"
+    return "mma"
 
 
 def _bind(lib):
@@ -73,7 +99,19 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
     without a copy."""
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal, window=window)
+    return launch(q, k, v, causal=causal, window=window,
+                  kernel=route(q.shape[2], q.shape[3], q.dtype))
+
+
+def launch(q, k, v, *, causal: bool, window: int, kernel: str):
+    """Launch ``kernel`` ("f32", "mma" or "wgmma") on CUDA tensors, whatever
+    ``route`` would pick; the card-side checks use it to hold both bf16
+    kernels against the plain version and against each other."""
     _check(q, k, v, window)
+    if kernel not in ROUTES or (kernel == "f32") != (q.dtype == torch.float32) \
+            or (kernel == "wgmma" and q.shape[3] not in WGMMA_HEAD_DIMS):
+        raise ValueError(f"flash_attention: kernel {kernel!r} does not take "
+                         f"{q.dtype} with head_dim {q.shape[3]}")
     lib = load_library(SOURCE, _bind)
     b, h, s, d = q.shape
     hkv, t = k.shape[1], k.shape[2]
@@ -85,13 +123,15 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h,
             hkv, s, t, d, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
             *out.stride()[:3], int(bool(causal)), int(window),
-            int(q.dtype == torch.bfloat16), stream)
+            ROUTES[kernel], stream)
     if rc != 0:
         raise RuntimeError(
             f"flash_attention kernel launch failed: CUDA error {rc} "
             f"({lib.coserve_flash_error_string(rc).decode()})")
     flash_attention.launches += 1
+    flash_attention.routes[kernel] += 1
     return out
 
 
 flash_attention.launches = 0
+flash_attention.routes = dict.fromkeys(ROUTES, 0)

@@ -15,6 +15,8 @@ card's machine does not have: there, run
 ``python -m pytest -q -m cuda tests/test_torch_decode_attention.py``.
 The JAX package is imported inside the CPU-side helpers for that reason.
 """
+import itertools
+
 import numpy as np
 import pytest
 import torch
@@ -138,6 +140,44 @@ def test_library_is_keyed_by_its_source():
         assert path == build.library_path(source)
 
 
+# The split planner runs on shapes alone: (B, Hkv, W, D, G, kv bytes, SMs)
+# -> (tile, rows a block, splits).
+@pytest.mark.parametrize("shape,want", [
+    ((1, 8, 4096, 128, 3, 2, 132), (64, 3, 32)),   # phi4-mini bf16: 256 blocks
+    ((1, 2, 4096, 128, 12, 2, 132), (64, 4, 32)),  # starcoder2-3b: 3 chunks
+    ((1, 2, 64, 64, 2, 4, 132), (64, 2, 1)),       # the engine's ring: 1 tile
+    ((2, 2, 528, 128, 12, 4, 132), (32, 4, 9)),    # fp32 rows: 32-slot tiles
+    ((2, 1, 100, 256, 8, 4, 132), (16, 4, 4)),     # fp32 D 256: 16-slot tiles
+    ((1, 1, 512, 64, 6, 2, 132), (64, 3, 4)),      # G 6: two chunks of 3
+    ((64, 8, 4096, 128, 3, 2, 132), (64, 3, 1)),   # enough rows for the card
+])
+def test_plan_at_the_served_geometries(shape, want):
+    assert da.plan(*shape) == want
+
+
+def test_plan_stays_within_the_kernels_limits():
+    for b, (hkv, g), w, (d, kv_bytes) in itertools.product(
+            (1, 3, 16), ((1, 128), (2, 12), (8, 3), (32, 1), (4, 7)),
+            (1, 63, 64, 65, 1000, 4096, 65537),
+            ((32, 4), (128, 2), (128, 4), (256, 4))):
+        if g * d > da.MAX_GROUP_ELEMS:
+            continue
+        shape = (b, hkv, w, d, g, kv_bytes, 132)
+        tile, rows, splits = da.plan(*shape)
+        n_tiles = -(-w // tile)
+        chunks = -(-g // rows)
+        assert 16 <= tile <= da.MAX_TILE and tile % 16 == 0, shape
+        assert 2 * tile * d * kv_bytes <= da.STAGE_BYTES, shape
+        # equal chunks of at most ROWS_PER_BLOCK rows cover the group
+        assert rows <= da.ROWS_PER_BLOCK and (chunks - 1) * rows < g, shape
+        assert 1 <= splits <= max(1, -(-n_tiles // da.MIN_TILES_PER_SPLIT)), \
+            shape
+        assert splits * rows <= da.MAX_COMBINE, shape
+        # the grid stays near one wave of BLOCKS_PER_SM blocks an SM
+        assert b * hkv * chunks * (splits - 1) < da.BLOCKS_PER_SM * 132, \
+            shape
+
+
 # --------------------------------------------------------------------------- #
 # on the card
 # --------------------------------------------------------------------------- #
@@ -192,3 +232,113 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
         da.decode_attention(q, k, k, 3)
     with pytest.raises(TypeError):
         da.decode_attention(q.half(), k.half(), k.half(), 3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q_dtype,kv_dtype", [("bfloat16", "bfloat16"),
+                                              ("float32", "float32")])
+@pytest.mark.parametrize("b,h,hkv,w,d,window", [
+    (1, 24, 8, 4096, 128, 0),    # phi4-mini: 64 tiles (128 fp32), 32 splits
+    (1, 24, 2, 1000, 128, 0),    # three chunks of 4 rows, 8 (16) splits
+    (2, 8, 4, 3000, 64, 0),      # 47 tiles over 24 splits, ragged last tile
+    (2, 12, 4, 700, 64, 300),    # a window across tiles, 6 splits
+])
+@pytest.mark.parametrize("pos_of", ["W/3", "W-1", "3W+17"])
+def test_split_combine_in_one_launch(cuda, q_dtype, kv_dtype, b, h, hkv, w,
+                                     d, window, pos_of):
+    """Splits >= 2 combined by the last split in the same launch; tile
+    counts that are not multiples of the splits; pos < W and pos >= 3W."""
+    pos = {"W/3": w // 3, "W-1": w - 1, "3W+17": 3 * w + 17}[pos_of]
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    kv_bytes = 2 if kv_dtype == "bfloat16" else 4
+    tile, rows, splits = da.plan(b, hkv, w, d, h // hkv, kv_bytes, sms)
+    assert splits >= 2
+    q, k, v = make_inputs(pos + w + d, b, h, hkv, w, d)
+    tq, tk, tv = (t.to(cuda) for t in as_torch(q, k, v, q_dtype, kv_dtype))
+    before = da.decode_attention.launches
+    got = da.decode_attention(tq, tk, tv, pos, window=window)
+    torch.cuda.synchronize()
+    assert da.decode_attention.launches == before + 1
+    want = decode_attention_ref(tq, tk, tv, pos, window=window)
+    tol = TOL[q_dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+def test_masked_slots_never_reach_the_sums(cuda):
+    """Slots the mask rejects may hold anything (NaN here, as in a ring not
+    yet written): the output stays finite and equal to the plain version
+    on a cache whose masked slots are zero."""
+    q, k, v = make_inputs(11, 1, 24, 8, 4096, 128)
+    tq, tk, tv = (t.to(cuda) for t in as_torch(q, k, v, "bfloat16",
+                                                "bfloat16"))
+    pos, window = 2500, 1000
+    slots = torch.arange(4096, device=cuda)
+    abs_pos = pos - torch.remainder(pos - slots, 4096)
+    masked = (abs_pos < 0) | (pos - abs_pos >= window)
+    tk[:, :, masked] = float("nan")
+    tv[:, :, masked] = float("nan")
+    got = da.decode_attention(tq, tk, tv, pos, window=window)
+    clean_k, clean_v = tk.clone(), tv.clone()
+    clean_k[:, :, masked] = 0
+    clean_v[:, :, masked] = 0
+    want = decode_attention_ref(tq, clean_k, clean_v, pos, window=window)
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                               atol=2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q_dtype,kv_dtype,w", [("bfloat16", "bfloat16", 4096),
+                                                ("float32", "float32", 528),
+                                                ("float32", "float32", 64)])
+def test_repeated_calls_and_graph_replays_are_bitwise_equal(cuda, q_dtype,
+                                                            kv_dtype, w):
+    """The combine adds the splits in split order whichever block ends
+    last, and resets its counter: two calls, and replays of a captured
+    graph, give the same bits."""
+    q, k, v = make_inputs(w, 1, 24, 8, w, 128)
+    tq, tk, tv = (t.to(cuda) for t in as_torch(q, k, v, q_dtype, kv_dtype))
+    pos = 3 * w + 17
+    first = da.decode_attention(tq, tk, tv, pos)
+    second = da.decode_attention(tq, tk, tv, pos)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        da.decode_attention(tq, tk, tv, pos)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = da.decode_attention(tq, tk, tv, pos)
+    replays = []
+    for _ in range(3):
+        graph.replay()
+        replays.append(captured.clone())
+    after = da.decode_attention(tq, tk, tv, pos)
+    torch.cuda.synchronize()
+    for out in (second, *replays, after):
+        assert torch.equal(out, first)
+    want = decode_attention_ref(tq, tk, tv, pos)
+    tol = TOL[q_dtype]
+    torch.testing.assert_close(first.float(), want.float(), rtol=tol,
+                               atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pos", [-1, -5])
+@pytest.mark.parametrize("b,h,hkv,w,d,kv_dtype", [
+    (1, 4, 2, 64, 64, "float32"),         # one tile, one split
+    (1, 24, 8, 4096, 128, "bfloat16"),    # 32 splits
+    (2, 24, 2, 100, 128, "float32"),      # three row chunks, ragged tile
+])
+def test_no_valid_slot_averages_v_on_the_card(cuda, pos, b, h, hkv, w, d,
+                                              kv_dtype):
+    """pos < 0: every slot is read and scored -1e30, so each row is the
+    average of v over the W slots, as the plain version gives."""
+    q, k, v = make_inputs(w - pos, b, h, hkv, w, d)
+    tq, tk, tv = (t.to(cuda) for t in as_torch(q, k, v, kv_dtype, kv_dtype))
+    got = da.decode_attention(tq, tk, tv, pos)
+    want = decode_attention_ref(tq, tk, tv, pos)
+    mean = tv.float().mean(dim=2).repeat_interleave(h // hkv, dim=1)
+    tol = TOL[kv_dtype]
+    torch.testing.assert_close(want.float(), mean, rtol=tol, atol=tol)
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)

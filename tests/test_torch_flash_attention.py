@@ -101,6 +101,27 @@ def test_neither_cpu_nor_cuda_raises():
         fa.flash_attention(q, k, k)
 
 
+@pytest.mark.parametrize("s,d,dtype,want", [
+    (4096, 128, torch.bfloat16, "wgmma"),   # starcoder2-3b prefill
+    (4096, 64, torch.bfloat16, "wgmma"),
+    (fa.WGMMA_MIN_SEQ, 128, torch.bfloat16, "wgmma"),
+    (fa.WGMMA_MIN_SEQ - 1, 128, torch.bfloat16, "mma"),
+    (16, 128, torch.bfloat16, "mma"),       # the LM router's prompts
+    (4096, 96, torch.bfloat16, "mma"),      # D 96 and 32 are not whole boxes
+    (4096, 32, torch.bfloat16, "mma"),
+    (4096, 128, torch.float32, "f32"),
+    (1, 32, torch.float32, "f32"),
+])
+def test_route_by_shape(s, d, dtype, want):
+    assert fa.route(s, d, dtype) == want
+
+
+def test_every_route_names_a_kernel_of_the_source():
+    assert set(fa.ROUTES) == {"f32", "mma", "wgmma"}
+    assert fa.WGMMA_HEAD_DIMS == (64, 128)
+    assert set(fa.flash_attention.routes) == set(fa.ROUTES)
+
+
 # --------------------------------------------------------------------------- #
 # on the card
 # --------------------------------------------------------------------------- #
@@ -201,3 +222,74 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
     strided_q = torch.zeros((1, 4, 64, 16), device=cuda).transpose(2, 3)
     with pytest.raises(ValueError, match="contiguous last dimension"):
         fa.flash_attention(strided_q, k, k)
+
+
+def draw(rng, b, h, s, d, layout, device):
+    """A bf16 [B,H,S,D] tensor, or a [B,H,S,D] view of a [B,S,H,D] one."""
+    if layout == "bshd":
+        x = torch.from_numpy(rng.standard_normal((b, s, h, d)))
+        return x.to(device, torch.bfloat16).transpose(1, 2)
+    return torch.from_numpy(rng.standard_normal((b, h, s, d))).to(
+        device, torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["bhsd", "bshd"])
+@pytest.mark.parametrize("b,h,hkv,s,t,d,causal,window", [
+    (1, 6, 2, 200, 200, 128, True, 0),      # S = T, not a multiple of 128
+    (1, 6, 2, 200, 201, 128, True, 0),      # T - S = 1
+    (1, 6, 2, 200, 327, 128, True, 0),      # T - S = 127
+    (2, 12, 4, 385, 385, 64, True, 0),      # group 3, D 64, ragged q tile
+    (1, 24, 2, 300, 428, 128, True, 0),     # group 12, T - S = 128
+    (1, 4, 1, 256, 256, 128, True, 50),     # window edge inside a key tile
+    (1, 4, 2, 520, 600, 64, True, 200),     # window edge, T > S, D 64
+    (1, 4, 4, 140, 270, 128, False, 0),     # non-causal, ragged T
+    (1, 2, 2, 300, 300, 64, False, 77),     # non-causal with a window
+])
+def test_wgmma_kernel_matches_plain_version(cuda, layout, b, h, hkv, s, t, d,
+                                            causal, window):
+    rng = np.random.default_rng(s + t + d + window)
+    q = draw(rng, b, h, s, d, layout, cuda)
+    k, v = (draw(rng, b, hkv, t, d, layout, cuda) for _ in range(2))
+    before = dict(fa.flash_attention.routes)
+    got = fa.launch(q, k, v, causal=causal, window=window, kernel="wgmma")
+    torch.cuda.synchronize()
+    assert fa.flash_attention.routes["wgmma"] == before["wgmma"] + 1
+    want = flash_attention_ref(q, k, v, causal=causal, window=window)
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                               atol=2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("side", [-1, 0])
+def test_both_sides_of_the_crossover(cuda, d, side):
+    """Around WGMMA_MIN_SEQ the dispatching wrapper takes the kernel the
+    rule names, and both bf16 kernels agree with the plain version."""
+    s = fa.WGMMA_MIN_SEQ + side
+    rng = np.random.default_rng(s + d)
+    q = draw(rng, 1, 24, s, d, "bshd", cuda)
+    k, v = (draw(rng, 1, 2, s, d, "bshd", cuda) for _ in range(2))
+    want = flash_attention_ref(q, k, v)
+    before = dict(fa.flash_attention.routes)
+    got = fa.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    picked = fa.route(s, d, torch.bfloat16)
+    assert picked == ("wgmma" if side == 0 else "mma")
+    assert fa.flash_attention.routes[picked] == before[picked] + 1
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                               atol=2e-2)
+    for kernel in ("mma", "wgmma"):
+        other = fa.launch(q, k, v, causal=True, window=0, kernel=kernel)
+        torch.testing.assert_close(other.float(), want.float(), rtol=2e-2,
+                                   atol=2e-2)
+
+
+@pytest.mark.cuda
+def test_wgmma_kernel_refuses_what_it_does_not_take(cuda):
+    q = torch.zeros((1, 4, 256, 96), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="does not take"):
+        fa.launch(q, q, q, causal=True, window=0, kernel="wgmma")
+    with pytest.raises(ValueError, match="does not take"):
+        fa.launch(q.float(), q.float(), q.float(), causal=True, window=0,
+                  kernel="mma")
