@@ -37,17 +37,23 @@ Phases, each of which ends the run with a nonzero exit when it fails:
 10. scan kernel vs plain: ``mamba_scan`` against ``mamba_scan_ref`` at
    Falcon-Mamba-7B's prefill (B 1, S 4096, D 8192, N 16, x bf16, dt B C
    float32), float32 over 4096 steps, a ragged float32 case, an all-bf16
-   one with the smoke configs' state of 8, and phase 12's 16-token batches,
-   with the kernel's time, its bound and the plain version's time (no
-   single PyTorch call computes a selective scan: no library yardstick);
+   one with the smoke configs' state of 8, phase 12's 16-token batches and
+   sequence lengths on each side of the route crossover (``SCAN_MIN_SEQ``),
+   with the route ``plan`` picks, the kernel's time, its bound and the
+   plain version's time (no single PyTorch call computes a selective scan:
+   no library yardstick), the profiler's kernels a call (one, at the
+   prefill and at the router's batch of one), and, where both kernels take
+   the shape, each held against the plain version and the two timed in
+   turns;
 11. Falcon-Mamba-7B at its published width: (a) 2 layers in float32, the
    kernel path against the plain-torch scan and greedy generation against
    teacher forcing; (b) all 64 layers with bf16 weights, a 4096-token
-   prefill and 32 decode steps, timed and profiled;
+   prefill and 32 decode steps, timed and profiled; every prefill's scans
+   on the chunked kernel;
 12. the LM-expert router with ``--arch falcon_mamba_7b`` at full width, 2
    layers: 90 prompts under both policies, every expert forward's scan
-   through the kernel, every served forward run again through the
-   plain-torch scan to compare.
+   through the sequential kernel, every served forward run again through
+   the plain-torch scan to compare.
 
 The last two lines of output are ``{"kernels": [...]}`` and
 ``{"ok": true, "device": {...}}``.
@@ -67,6 +73,8 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
+
+from repro_torch.kernels.mamba_scan import SCAN_MIN_SEQ  # noqa: E402
 
 # NVIDIA H100 SXM data sheet: HBM3 rate and float32 rate outside the
 # tensor cores (the kernel's arithmetic is float32 on the CUDA cores)
@@ -849,8 +857,50 @@ MAMBA_GEOMETRIES = [
     # phase 12's forwards: 16-token prompts in batches padded to 1/2/4/8
     *((f"lm router, batch {b}", b, 16, 8192, 16, BF16, F32, F32, 2e-2)
       for b in (1, 2, 4, 8)),
+    # sequence lengths on each side of the scan's crossover (SCAN_MIN_SEQ),
+    # at Falcon-Mamba's width
+    *((f"crossover S {s}", 1, s, 8192, 16, BF16, F32, F32, 2e-2)
+      for s in (64, SCAN_MIN_SEQ - 1, SCAN_MIN_SEQ, 512, 1024, 2048)),
 ]
 MAMBA_REPORTED = "falcon-mamba prefill"
+
+
+# the geometries whose kernels a call phase 10 counts, one of each route
+MAMBA_PROFILED = ("falcon-mamba prefill", "lm router, batch 1")
+PROFILE_SCAN = """
+import json, sys
+import torch
+from torch.profiler import ProfilerActivity, profile
+sys.path.insert(0, sys.argv[1])
+from repro_torch.kernels import mamba_scan as ms
+b, s, d, n = map(int, sys.argv[2:6])
+xt, dtt, bct = (getattr(torch, t) for t in sys.argv[6:9])
+g = torch.Generator(device="cuda").manual_seed(0)
+r = lambda *shape: torch.randn(shape, generator=g, device="cuda")
+args = (r(b, s, d).to(xt), torch.nn.functional.softplus(r(b, s, d)).to(dtt),
+        r(b, s, n).to(bct), r(b, s, n).to(bct), -torch.exp(r(d, n)), r(d))
+ms.mamba_scan(*args)
+torch.cuda.synchronize()
+with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    for _ in range(5):
+        ms.mamba_scan(*args)
+    torch.cuda.synchronize()
+print(json.dumps({e.key[:60]: e.count / 5 for e in prof.key_averages()
+                  if e.device_time_total > 0}))
+"""
+
+
+def scan_kernels_per_call(b, s, d, n, xt, dtt, bct) -> dict:
+    """The CUDA kernels one ``mamba_scan`` call launches, by name, from
+    ``torch.profiler``'s CUDA activity over five calls in a fresh process
+    (after this process's many profiles the tracer has missed launches of
+    a repeated kernel)."""
+    out = subprocess.run(
+        [sys.executable, "-c", PROFILE_SCAN, os.path.join(ROOT, "src"),
+         *map(str, (b, s, d, n)), *(str(t).split(".")[1]
+                                     for t in (xt, dtt, bct))],
+        check=True, capture_output=True, text=True).stdout
+    return json.loads(out.strip().splitlines()[-1])
 
 
 def mamba_vs_plain(ms, ref):
@@ -859,7 +909,11 @@ def mamba_vs_plain(ms, ref):
     bf16, 2e-2 relative and absolute (y is rounded to bf16); in float32,
     1e-5 relative and 1e-5 of the largest |value| absolute, since y_t sums
     N products C h whose size is the state's (hundreds here) and which
-    cancel, and the kernel sums them in another order."""
+    cancel, and the kernel sums them in another order. Every geometry both
+    kernels take is run through each, held against the plain version, and
+    the two are timed in turns (seq, chunked, chunked, seq); the line
+    names the route ``plan`` picks, and for ``MAMBA_PROFILED`` the
+    profiler's kernels a call."""
     lines = []
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(2)
@@ -878,23 +932,54 @@ def mamba_vs_plain(ms, ref):
                  torch.nn.functional.softplus(randn(b, s, d)).to(dtt),
                  randn(b, s, n).to(bct), randn(b, s, n).to(bct), a, d_vec)
                 for _ in range(copies)]
-        y, h = ms.mamba_scan(*sets[0])
         want_y, want_h = ref.mamba_scan_ref(*sets[0])
+
+        def check(out, who):
+            err, scale = 0.0, 0.0
+            for got, want in ((out[0].float(), want_y.float()),
+                              (out[1], want_h)):
+                top = want.abs().max().item()
+                atol = tol * top if xt == F32 else tol
+                err = max(err, (got - want).abs().max().item())
+                scale = max(scale, top)
+                if not torch.allclose(got, want, rtol=tol, atol=atol):
+                    raise AssertionError(
+                        f"mamba_scan ({who}) disagrees with its plain version "
+                        f"at {label}: max |err| {err} > tol {tol} (atol "
+                        f"{atol})")
+            return err, scale
+
+        route = ms.plan(b, s, d, n, ms.rows_aligned(*sets[0][:2]))["route"]
+        before = dict(ms.mamba_scan.routes)
+        err, scale = check(ms.mamba_scan(*sets[0]), "wrapper")
         torch.cuda.synchronize()
-        err, scale = 0.0, 0.0
-        for got, want in ((y.float(), want_y.float()), (h, want_h)):
-            top = want.abs().max().item()
-            atol = tol * top if xt == F32 else tol
-            err = max(err, (got - want).abs().max().item())
-            scale = max(scale, top)
-            if not torch.allclose(got, want, rtol=tol, atol=atol):
-                raise AssertionError(
-                    f"mamba_scan disagrees with its plain version at "
-                    f"{label}: max |err| {err} > tol {tol} (atol {atol})")
+        if ms.mamba_scan.routes[route] != before[route] + 1:
+            raise AssertionError(f"{label}: the call did not take the "
+                                 f"{route} kernel")
         ms_kernel = time_ms(ms.mamba_scan, sets, 20)
         eager_ms = time_ms(ms.mamba_scan, sets, 20, graph=False)
         plain_ms = time_ms(ref.mamba_scan_ref, sets[:1],
                            1 if s > 1000 else 3)
+        per_call = None
+        if label in MAMBA_PROFILED:
+            per_call = scan_kernels_per_call(b, s, d, n, xt, dtt, bct)
+            name = {"seq": "mamba_scan_kernel",
+                    "chunked": "mamba_scan_chunked_kernel"}[route]
+            if list(per_call.values()) != [1] or \
+                    name not in next(iter(per_call)):
+                raise AssertionError(f"{label}: the profiler saw {per_call} "
+                                     f"a call, not one {name}")
+        # both kernels where both take the shape: each against the plain
+        # version, then in turns
+        routes_ms, routes_err = {}, {}
+        if d % 8 == 0 and ms.rows_aligned(*sets[0][:2]):
+            for name in ms.ROUTES:
+                routes_err[name] = check(
+                    ms.launch(*sets[0], kernel=name), name)[0]
+            for name in ("seq", "chunked", "chunked", "seq"):
+                routes_ms.setdefault(name, []).append(time_ms(
+                    lambda *args, name=name: ms.launch(*args, kernel=name),
+                    sets, 20))
         # bound: x, dt, B, C, A, D read once, y and h written once; per
         # (b, s, d, n) the exponential, dt*A, dtx*B, the state's FMA and the
         # C FMA (7 operations), per (b, s, d) dt*x and the D skip (3)
@@ -907,18 +992,23 @@ def mamba_vs_plain(ms, ref):
                          f"{'bf16' if xt == BF16 else 'fp32'} dt "
                          f"{'bf16' if dtt == BF16 else 'fp32'} B/C "
                          f"{'bf16' if bct == BF16 else 'fp32'}",
-                "max_abs_err": err, "max_abs_value": scale, "tol": tol,
-                "ms": ms_kernel,
+                "route": route, "max_abs_err": err, "max_abs_value": scale,
+                "tol": tol, "ms": ms_kernel,
                 "eager_ms": eager_ms, "plain_ms": plain_ms,
                 "library_ms": None,
                 "bound_ms": max(t_bytes, t_ops) * 1e3,
                 "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                 "bytes_ms": t_bytes * 1e3, "ops_ms": t_ops * 1e3,
                 "sfu_exp_ms": b * s * d * n / SFU_EXP_PER_S * 1e3,
+                "kernels_per_call": per_call,
+                "routes_in_turns_ms": routes_ms,
+                "routes_max_abs_err": routes_err,
                 "reported": label == MAMBA_REPORTED}
+        if label == MAMBA_REPORTED:
+            line["chunked_blocks_per_sm"] = ms.occupancy(n, xt, dtt, bct)
         print(json.dumps(line), flush=True)
         lines.append(line)
-        del sets, y, h, want_y, want_h
+        del sets, want_y, want_h
         torch.cuda.empty_cache()
     return lines
 
@@ -934,24 +1024,40 @@ def falcon_phases(ms):
     base = dataclasses.replace(get_config("falcon_mamba_7b"), remat=False,
                                attn_impl="pallas")
     kernels = {"mamba_scan": ms.mamba_scan}
-    # (a) parity: 2 layers, float32 weights and compute
+    scan = ms.mamba_scan
+
+    def routes_since(before):
+        return {k: v - before[k] for k, v in scan.routes.items()}
+
+    # (a) parity: 2 layers, float32 weights and compute; B 2 and a
+    # 512-token prompt, so every scan takes the route plan gives that shape
     cfg = dataclasses.replace(base, num_layers=2, compute_dtype="float32")
+    before = dict(scan.routes)
     summary_a = {"phase": "11a parity, 2 layers fp32",
                  **parity_run(cfg, 6, kernels)}
+    summary_a["scan_routes"] = routes_since(before)
     print(json.dumps(summary_a), flush=True)
     n = cfg.num_layers
     if not summary_a["launches_forward"] == summary_a["launches_generate"] \
             == {"mamba_scan": n}:
         raise AssertionError(f"scan launches {summary_a}: {n} per forward "
                              "and per prefill, none in decode")
+    want = ms.plan(2, 512, cfg.ssm_expand * cfg.d_model,
+                   cfg.ssm_state_dim)["route"]
+    if summary_a["scan_routes"][want] != sum(
+            summary_a["scan_routes"].values()):
+        raise AssertionError(f"11a: scans took {summary_a['scan_routes']}, "
+                             f"all should take {want}")
 
     # (b) the whole model: 64 layers, bf16 weights and compute
     cfg = dataclasses.replace(base, param_dtype="bfloat16")
+    before = dict(scan.routes)
     summary_b = {"phase": "11b falcon-mamba-7b, 64 layers bf16",
                  **whole_model_run(cfg, (7, 8), kernels,
-                                   ("mamba_scan_kernel",), ())}
+                                   ("mamba_scan",), ())}
+    summary_b["scan_routes"] = routes_since(before)
     pre = summary_b["prefill_device_ms_by_kernel"]
-    summary_b["prefill_scan_share"] = pre["mamba_scan_kernel"] / max(
+    summary_b["prefill_scan_share"] = pre["mamba_scan"] / max(
         sum(pre.values()), 1e-9)
     print(json.dumps(summary_b), flush=True)
     n = cfg.num_layers
@@ -959,6 +1065,11 @@ def falcon_phases(ms):
             summary_b["launches_32_decode_steps"] != {"mamba_scan": 0}:
         raise AssertionError(f"scan launches {summary_b}: {n} per prefill, "
                              "none in decode")
+    if summary_b["scan_routes"]["seq"] != 0 or \
+            summary_b["scan_routes"]["chunked"] % n:
+        raise AssertionError(f"11b: the 4096-token prefills' scans took "
+                             f"{summary_b['scan_routes']}: all should take "
+                             "the chunked kernel, 64 a prefill")
     return summary_a, summary_b
 
 
@@ -968,7 +1079,8 @@ def kernel_entry(name, source, replaces, launches, line) -> dict:
             "max_abs_err": line["max_abs_err"], "ms": line["ms"],
             "plain_ms": line["plain_ms"], "bound_ms": line["bound_ms"],
             "bound_by": line["bound_by"], "library_ms": line["library_ms"],
-            "shape": line["shape"]}
+            "shape": line["shape"],
+            **({"kernel_route": line["route"]} if "route" in line else {})}
 
 
 def main() -> int:
@@ -1037,7 +1149,14 @@ def main() -> int:
 
     phase("12 LM-expert router, Falcon-Mamba-7B experts, full width, 2 "
           "layers (this slice's main path)")
-    _, scan_launches = lm_router_phase(ms.mamba_scan, "falcon_mamba_7b")
+    scan_lines, scan_launches = lm_router_phase(ms.mamba_scan,
+                                                "falcon_mamba_7b")
+    for line in scan_lines:
+        if "routes" in line and line["routes"] != {
+                "seq": line["kernel_launches"], "chunked": 0}:
+            raise AssertionError(
+                f"{line['policy']}: the router's 16-token scans took "
+                f"{line['routes']}: all should take the seq kernel")
 
     rep = next(ln for ln in lines if ln["reported"])
     flash_rep = next(ln for ln in flash_lines if ln["reported"])

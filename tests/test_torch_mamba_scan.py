@@ -9,10 +9,14 @@ chunk boundaries, a starting state ``h0``, and sequences that divide no
 chunk. Inputs come from numpy seeds, drawn as that file draws them (dt a
 softplus, A negative). Tolerances as in ``tests/test_kernels.py``: float32
 2e-5 (exp and the sum over N in another order), bfloat16 2e-2 (y rounded to
-bf16).
+bf16. ``tests/test_torch_mamba_chunked.py`` holds the chunked kernel's
+order of operations and ``plan`` on the CPU.
 
-The tests marked ``cuda`` hold the hand-written kernel against its plain
-version on the card and skip without one. In float32 the tolerance is 1e-5
+The tests marked ``cuda`` hold the hand-written kernels against their plain
+version on the card and skip without one: the wrapper's route and each
+kernel by ``launch`` at shapes both take and around the crossover
+(``SCAN_MIN_SEQ``), strided model views on the chunked kernel, bitwise
+repeatability over calls and graph replays, one profiler kernel a call. In float32 the tolerance is 1e-5
 of the largest |y| (and of the largest |h| for the state), over thousands
 of steps: y_t sums N products C_t[n] h_t[n], each as large as the state,
 which grow to hundreds and cancel, and the kernel adds them in another
@@ -219,7 +223,10 @@ def cuda():
     return torch.device("cuda")
 
 
-def kernel_vs_plain(cuda, arrays, x_dtype, dt_dtype, bc_dtype, tol):
+def kernel_vs_plain(cuda, arrays, x_dtype, dt_dtype, bc_dtype, tol,
+                    kernel=None):
+    """The wrapper's call (``kernel`` None: the route ``plan`` picks) or
+    ``ms.launch`` of ``kernel`` against the plain version."""
     x, dt, b_mat, c_mat, a, d_vec = (torch.from_numpy(v).to(cuda)
                                      for v in arrays)
     x = x.to(TORCH_DTYPES[x_dtype])
@@ -227,9 +234,14 @@ def kernel_vs_plain(cuda, arrays, x_dtype, dt_dtype, bc_dtype, tol):
     b_mat = b_mat.to(TORCH_DTYPES[bc_dtype])
     c_mat = c_mat.to(TORCH_DTYPES[bc_dtype])
     before = ms.mamba_scan.launches
-    y, h = ms.mamba_scan(x, dt, b_mat, c_mat, a, d_vec)
+    route = kernel or ms.plan(*x.shape, b_mat.shape[-1],
+                              ms.rows_aligned(x, dt))["route"]
+    routed = ms.mamba_scan.routes[route]
+    y, h = (ms.mamba_scan(x, dt, b_mat, c_mat, a, d_vec) if kernel is None
+            else ms.launch(x, dt, b_mat, c_mat, a, d_vec, kernel=kernel))
     torch.cuda.synchronize()
     assert ms.mamba_scan.launches == before + 1
+    assert ms.mamba_scan.routes[route] == routed + 1
     want_y, want_h = mamba_scan_ref(x, dt, b_mat, c_mat, a, d_vec)
     assert y.dtype == x.dtype and y.shape == want_y.shape
     assert h.dtype == torch.float32 and h.shape == want_h.shape
@@ -271,8 +283,112 @@ def test_kernel_matches_plain_version_bfloat16(cuda, b, s, d, n, dt_dtype,
 
 @pytest.mark.cuda
 def test_kernel_holds_1e_5_over_4096_steps(cuda):
+    assert ms.plan(1, 4096, 256, 16)["route"] == "chunked"
     kernel_vs_plain(cuda, make_inputs(4096, 1, 4096, 256, 16), "float32",
                     "float32", "float32", 1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ms.ROUTES)
+@pytest.mark.parametrize("b,s,d,n,x_dtype,tol", [
+    (1, ms.SCAN_MIN_SEQ - 1, 256, 16, "float32", 1e-5),   # the crossover
+    (1, ms.SCAN_MIN_SEQ, 256, 16, "float32", 1e-5),
+    (2, 300, 200, 8, "float32", 1e-5),       # S divides no chunk, D no block
+    (1, ms.CHUNK + 1, 64, 32, "float32", 1e-5),
+    (3, 1000, 1000, 4, "float32", 1e-5),
+    (1, 2 * ms.CHUNK, 48, 1, "float32", 1e-5),
+    (1, 1, 64, 16, "float32", 1e-5),         # one step
+    (2, 150, 304, 16, "bfloat16", 2e-2),
+    (2, 16, 8192, 16, "bfloat16", 2e-2),     # the router's batches
+])
+def test_both_kernels_match_plain_version(cuda, kernel, b, s, d, n, x_dtype,
+                                          tol):
+    kernel_vs_plain(cuda, make_inputs(b + s + d + n, b, s, d, n), x_dtype,
+                    "float32", "float32", tol, kernel=kernel)
+
+
+@pytest.mark.cuda
+def test_chunked_kernel_reads_the_models_strided_views(cuda):
+    """x as the model makes it (the first half of the in-projection
+    [B,S,2D]) and B, C as column views of one projection [B,S,rk+2N], with
+    rows that start 24 bytes in: y and h equal the contiguous inputs'
+    result, bit for bit, through the chunked kernel."""
+    s = ms.SCAN_MIN_SEQ + 5
+    x, dt, b_mat, c_mat, a, d_vec = (torch.from_numpy(v).to(cuda) for v in
+                                     make_inputs(10, 2, s, 96, 16))
+    xz = torch.cat([x, torch.zeros_like(x)], dim=-1)
+    proj = torch.cat([torch.zeros((2, s, 6), device=cuda), b_mat, c_mat],
+                     dim=-1)
+    x_view, b_view, c_view = xz[..., :96], proj[..., 6:22], proj[..., 22:]
+    assert not x_view.is_contiguous() and not b_view.is_contiguous()
+    assert ms.plan(2, s, 96, 16, ms.rows_aligned(x_view, dt))["route"] \
+        == "chunked"
+    routed = ms.mamba_scan.routes["chunked"]
+    y, h = ms.mamba_scan(x_view, dt, b_view, c_view, a, d_vec)
+    want_y, want_h = ms.mamba_scan(x, dt, b_mat, c_mat, a, d_vec)
+    assert ms.mamba_scan.routes["chunked"] == routed + 2
+    torch.testing.assert_close(y, want_y, rtol=0, atol=0)
+    torch.testing.assert_close(h, want_h, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_chunked_kernel_is_bitwise_repeatable(cuda):
+    """Two calls and three replays of a captured call give the same bits:
+    the sums run in a fixed order, with no atomics."""
+    args = as_torch(make_inputs(11, 1, 1000, 512, 16), "bfloat16", cuda)
+    args = (args[0], args[1].float(), args[2].float(), args[3].float(),
+            *args[4:])
+    first = ms.launch(*args, kernel="chunked")
+    second = ms.launch(*args, kernel="chunked")
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        ms.launch(*args, kernel="chunked")
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = ms.launch(*args, kernel="chunked")
+    for out in (second,):
+        for got, want in zip(out, first):
+            assert torch.equal(got, want)
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        for got, want in zip(captured, first):
+            assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel,name", [("seq", "mamba_scan_kernel"),
+                                         ("chunked",
+                                          "mamba_scan_chunked_kernel")])
+def test_profiler_sees_one_scan_kernel_a_call(cuda, kernel, name):
+    from torch.profiler import ProfilerActivity, profile
+
+    args = as_torch(make_inputs(12, 1, 512, 256, 16), "float32", cuda)
+    ms.launch(*args, kernel=kernel)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            ms.launch(*args, kernel=kernel)
+        torch.cuda.synchronize()
+    kernels = {e.key: e.count for e in prof.key_averages()
+               if e.device_time_total > 0}
+    assert len(kernels) == 1, kernels
+    key, count = next(iter(kernels.items()))
+    assert name in key and count == 3
+
+
+@pytest.mark.cuda
+def test_launch_refuses_a_kernel_that_does_not_take_the_shape(cuda):
+    x, dt, b_mat, c_mat, a, d_vec = as_torch(
+        make_inputs(13, 1, 300, 100, 16), "float32", cuda)
+    with pytest.raises(ValueError, match="does not take"):
+        ms.launch(x, dt, b_mat, c_mat, a, d_vec, kernel="chunked")  # D 100
+    with pytest.raises(ValueError, match="does not take"):
+        ms.launch(x, dt, b_mat, c_mat, a, d_vec, kernel="wgmma")
+    y, _ = ms.launch(x, dt, b_mat, c_mat, a, d_vec, kernel="seq")
+    assert torch.isfinite(y).all()
 
 
 @pytest.mark.cuda
@@ -301,14 +417,18 @@ def test_kernel_reads_the_models_strided_views(cuda):
 
 
 @pytest.mark.cuda
-def test_cuda_path_never_calls_the_plain_version(cuda, monkeypatch):
+@pytest.mark.parametrize("s", [32, ms.SCAN_MIN_SEQ])   # both kernels
+def test_cuda_path_never_calls_the_plain_version(cuda, monkeypatch, s):
     def refuse(*a, **k):
         raise AssertionError("the plain version ran on a CUDA tensor")
 
     monkeypatch.setattr(ms, "mamba_scan_ref", refuse)
-    args = as_torch(make_inputs(1, 1, 32, 64, 16), "float32", cuda)
+    args = as_torch(make_inputs(1, 1, s, 64, 16), "float32", cuda)
+    route = ms.plan(1, s, 64, 16)["route"]
+    routed = ms.mamba_scan.routes[route]
     y, h = ops.mamba_scan_op(*args)
     torch.cuda.synchronize()
+    assert ms.mamba_scan.routes[route] == routed + 1
     assert y.is_cuda and torch.isfinite(y).all() and torch.isfinite(h).all()
 
 
