@@ -11,21 +11,26 @@ Phases, each of which ends the run with a nonzero exit when it fails:
 3. decode kernel vs plain: ``decode_attention`` against
    ``decode_attention_ref`` on the card at the serving geometry, a ring of
    two splits, phi4-mini's and starcoder2-3b's attention geometry and the
-   rings the transformer's decode uses, with its time, its bound, the plain
-   version's time, the time of ``scaled_dot_product_attention`` as a
-   library yardstick and the profiler's kernels a call (one: the splits
-   combine in the same launch);
+   rings the transformer's, Moonlight's, Jamba's and Whisper's decode
+   steps use, with its time, its bound, the plain version's time, the time
+   of ``scaled_dot_product_attention`` as a library yardstick and the
+   profiler's kernels a call (one: the splits combine in the same launch);
+   then calls with splits in flight on two streams at once, each held
+   against the plain version (each stream has its own combine tickets);
 4. serving with decode: ``repro_torch.launch.serve --mode real --decode``
    on the card, every decode step through the decode kernel;
 5. the same server with phi4-mini's ring geometry;
 6. ``--mode real`` and ``--mode online --engine real`` without decode;
 7. flash kernel vs plain: ``flash_attention`` against
-   ``flash_attention_ref`` at starcoder2-3b's and phi4-mini's prefill, a
-   cached prefix, a sliding window, a ragged fp32 case, a non-causal one,
-   phase 9's 16-token batches in the layout the model hands it and query
-   lengths around the bf16 dispatch's crossover, with the same timings and
-   SDPA as the yardstick; where both bf16 kernels take the shape, each is
-   held against the plain version and the two are timed in turns;
+   ``flash_attention_ref`` at starcoder2-3b's, phi4-mini's and Moonlight's
+   prefill, a cached prefix, a sliding window, a ragged fp32 case, a
+   non-causal one, phase 9's 16-token batches in the layout the model hands
+   it, query lengths around the bf16 dispatch's crossover and Whisper's
+   non-causal shapes (its encoder over 1500 frames, its cross-attention of
+   a 64-token prompt and of one decode token over them), with the same
+   timings and SDPA as the yardstick; where both bf16 kernels take the
+   shape, each is held against the plain version and the two are timed in
+   turns;
 8. the transformer at StarCoder2-3B's full width: (a) 2 layers in float32,
    the kernels' path against the plain-torch path and greedy generation
    against teacher forcing; (b) all 30 layers with bf16 weights, a
@@ -53,13 +58,38 @@ Phases, each of which ends the run with a nonzero exit when it fails:
 12. the LM-expert router with ``--arch falcon_mamba_7b`` at full width, 2
    layers: 90 prompts under both policies, every expert forward's scan
    through the sequential kernel, every served forward run again through
-   the plain-torch scan to compare.
+   the plain-torch scan to compare;
+13. Moonlight-16B-A3B (64 experts, top-6) at its published width: (a) 2
+   layers in float32 at a dropless capacity factor, the kernels' path
+   against the plain-torch path and greedy generation against teacher
+   forcing, then the tokens a 4096-token prompt drops at the published
+   1.25 and the expert load; (b) all 48 layers with bf16 weights, a
+   4096-token prefill and 32 decode steps, timed and profiled by family
+   (flash, decode kernel, MoE expert matmuls, MoE routing, dispatch and
+   combine, the rest);
+14. Jamba-v0.1 with its MoE (16 experts, top-2, on odd slots): (a) one
+   period (8 layers) in float32, B 1, 512 tokens, kernels' path against
+   plain path; (b) two periods (16 layers, the depth cut so the bf16
+   weights fit one card) the same way as 13(b): the one model whose
+   forward runs all three kernels;
+15. the LM-expert router with ``--arch moonshot_v1_16b_a3b`` at full
+   width, 2 layers (1 if the host has under 40 GB free for the store): 90
+   prompts under both policies, flash launches = layers x forwards, every
+   served forward run again through the plain-torch path, rows whose
+   routing took other experts on the two paths at a near-tie counted and
+   set aside;
+16. Whisper-medium: (a) 2 encoder and 2 decoder layers in float32, the
+   kernels' path against the plain-torch path and prefill + decode steps
+   against the teacher-forced decoder; (b) all 24 + 24 layers in bf16,
+   B 1, 1500 frames, a 64-token prompt and 32 decode steps: encode,
+   prefill and decode timed and profiled by family.
 
 The last two lines of output are ``{"kernels": [...]}`` and
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import math
@@ -108,6 +138,11 @@ GEOMETRIES = [
     ("starcoder2-3b decode fp32, batch 2", 2, 24, 2, 128, 528, 0, F32, F32),
     # the smallest ring the wrapper splits in two (three 64-slot tiles)
     ("engine heads, two splits", 1, 4, 2, 64, 192, 0, F32, F32),
+    # the rings of the whole-model runs of phases 13(b), 14(b) and 16(b)
+    ("moonlight decode bf16", 1, 16, 16, 128, 4128, 0, BF16, BF16),
+    ("jamba attention decode bf16", 1, 32, 8, 128, 4128, 0, BF16, BF16),
+    ("whisper decoder self-attention bf16", 1, 16, 16, 64, 96, 0, BF16,
+     BF16),
 ]
 REPORTED = ("phi4-mini bf16", "3W+17")   # the line the kernels JSON carries
 PHI4_RING = dict(num_heads=24, num_kv_heads=8, head_dim=128, width=4096,
@@ -265,6 +300,106 @@ def kernel_vs_plain(da, ref):
     return lines
 
 
+def two_streams(da, ref, calls: int = 40) -> dict:
+    """Phase 3's concurrency check: phi4-mini's bf16 ring (32 splits) on two
+    streams, ``calls`` calls each issued in turns with no wait between
+    them, each stream on its own inputs; every result against the plain
+    version. Calls that shared one set of combine tickets would draw each
+    other's and combine early or not at all."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(9)
+    b, h, hkv, d, w = 1, 24, 8, 128, 4096
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    splits = da.plan(b, hkv, w, d, h // hkv, 2, sms)[2]
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    inputs = [(torch.randn((b, h, d), generator=gen, device=dev).to(BF16),
+               torch.randn((b, hkv, w, d), generator=gen, device=dev).to(BF16),
+               torch.randn((b, hkv, w, d), generator=gen, device=dev).to(BF16))
+              for _ in streams]
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream())
+    outs = [[], []]
+    for i in range(calls):
+        for j, s in enumerate(streams):
+            with torch.cuda.stream(s):
+                outs[j].append(da.decode_attention(*inputs[j], 3 * w + i))
+    torch.cuda.synchronize()
+    err = 0.0
+    for j in range(2):
+        for i, got in enumerate(outs[j]):
+            want = ref.decode_attention_ref(*inputs[j], 3 * w + i)
+            err = max(err, (got.float() - want.float()).abs().max().item())
+            if not torch.allclose(got.float(), want.float(), rtol=2e-2,
+                                  atol=2e-2):
+                raise AssertionError(
+                    f"decode_attention on stream {j}, call {i}: max |err| "
+                    f"{err} against the plain version with another stream's "
+                    "calls in flight")
+    line = {"check": "two streams in flight", "splits": splits,
+            "calls_per_stream": calls, "max_abs_err": err, "tol": 2e-2}
+    print(json.dumps(line), flush=True)
+    return line
+
+
+def two_graphs(da, ref, calls: int = 4, replays: int = 20) -> dict:
+    """Phase 3's graph check: two graphs captured on the default capture
+    stream, each holding ``calls`` calls at phi4-mini's bf16 ring (32
+    splits) on its own inputs, replayed second first, then in turns, then
+    ``replays`` times each on two streams at once; every result against
+    the plain version. Graphs that shared one set of combine tickets would
+    find them unzeroed, or draw each other's."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(11)
+    b, h, hkv, d, w = 1, 24, 8, 128, 4096
+    inputs = [(torch.randn((b, h, d), generator=gen, device=dev).to(BF16),
+               torch.randn((b, hkv, w, d), generator=gen, device=dev).to(BF16),
+               torch.randn((b, hkv, w, d), generator=gen, device=dev).to(BF16))
+              for _ in range(2)]
+    graphs, outs = [], []
+    for i in range(2):
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            outs.append([da.decode_attention(*inputs[i], 3 * w + j)
+                         for j in range(calls)])
+        graphs.append(graph)
+    want = [[ref.decode_attention_ref(*inputs[i], 3 * w + j)
+             for j in range(calls)] for i in range(2)]
+    err = 0.0
+
+    def check(graphs_run, when):
+        nonlocal err
+        torch.cuda.synchronize()
+        for i in graphs_run:
+            for j, (got, ref_out) in enumerate(zip(outs[i], want[i])):
+                e = (got.float() - ref_out.float()).abs().max().item()
+                err = max(err, e)
+                if not torch.allclose(got.float(), ref_out.float(),
+                                      rtol=2e-2, atol=2e-2):
+                    raise AssertionError(
+                        f"decode_attention in graph {i}, call {j}, {when}: "
+                        f"max |err| {e} against the plain version")
+
+    for i in (1, 0, 1, 0):
+        graphs[i].replay()
+        check((i,), f"replay of graph {i}")
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream())
+    for _ in range(replays):
+        for graph, s in zip(graphs, streams):
+            with torch.cuda.stream(s):
+                graph.replay()
+    for s in streams:
+        torch.cuda.current_stream().wait_stream(s)
+    check((0, 1), "after replays on two streams at once")
+    line = {"check": "two graphs, second replayed first, then together",
+            "calls_per_graph": calls, "replays_together": replays,
+            "max_abs_err": err, "tol": 2e-2}
+    print(json.dumps(line), flush=True)
+    del graphs
+    return line
+
+
 def replay_result(rid: int, tokens: int, ring: dict) -> np.ndarray:
     """The decode result a request must end with: the engine's hash-seeded
     inputs replayed through a CPU ring and the plain version."""
@@ -372,6 +507,16 @@ FLASH_GEOMETRIES = [
     *((f"crossover S {s}", 1, 24, 2, s, s, 128, BF16, True, 0, "bshd")
       for s in (64, 65, 96, 127, 256, 512)),
     ("crossover S 256, D 64", 1, 24, 2, 256, 256, 64, BF16, True, 0, "bshd"),
+    # phase 13(b)'s prefill; phase 16's non-causal shapes: the encoder over
+    # 1500 frames (11 tiles of 128 rows and a ragged 92) and the decoder's
+    # cross-attention of a 64-token prompt and of a decode step
+    ("moonlight prefill", 1, 16, 16, 4096, 4096, 128, BF16, True, 0,
+     "bshd"),
+    ("whisper encoder", 1, 16, 16, 1500, 1500, 64, BF16, False, 0, "bshd"),
+    ("whisper cross-attention, prompt", 1, 16, 16, 64, 1500, 64, BF16,
+     False, 0, "bshd"),
+    ("whisper cross-attention, decode step", 1, 16, 16, 1, 1500, 64, BF16,
+     False, 0, "bshd"),
 ]
 FLASH_REPORTED = "starcoder2-3b prefill"
 
@@ -497,35 +642,13 @@ def flash_vs_plain(fa, ref):
     return lines
 
 
-def kernel_split(prof, names, n_other: int = 4):
-    """Device ms of a profile, summed by kernel family: each of ``names``
-    (matched as a substring), the matmuls (cuBLAS/CUTLASS), the rest;
-    and the ``n_other`` largest kernels of the rest, by name."""
-    out = {n: 0.0 for n in (*names, "matmul", "other")}
-    other = {}
-    for e in prof.key_averages():
-        if e.device_time_total <= 0:
-            continue
-        key = e.key.lower()
-        fam = next((n for n in names if n in key), None)
-        if fam is None:
-            fam = "matmul" if any(m in key for m in (
-                "gemm", "gemv", "xmma", "cutlass", "cublas", "nvjet",
-                "matmul")) else "other"
-        out[fam] += e.device_time_total / 1e3
-        if fam == "other":
-            other[e.key[:60]] = e.device_time_total / 1e3
-    top = dict(sorted(other.items(), key=lambda kv: -kv[1])[:n_other])
-    return out, top
-
-
-def parity_run(cfg, seed: int, kernels: dict) -> dict:
-    """(a) of phases 8 and 11: ``cfg`` (float32, the kernels' path) with
-    weights from ``seed``, B 2, a 512-token prompt: forward logits against
-    the plain-torch path (``attn_impl="xla"``) within 1e-4 (only the
-    kernels' sums differ), and 16 greedy tokens against teacher forcing.
-    The summary carries the launches of each of ``kernels`` (name ->
-    wrapper) in the forward and in the generation."""
+def parity_run(cfg, seed: int, kernels: dict, batch: int = 2) -> dict:
+    """(a) of phases 8, 11, 13 and 14: ``cfg`` (float32, the kernels' path)
+    with weights from ``seed``, B ``batch``, a 512-token prompt: forward
+    logits against the plain-torch path (``attn_impl="xla"``) within 1e-4
+    (only the kernels' sums differ), and 16 greedy tokens against teacher
+    forcing. The summary carries the launches of each of ``kernels`` (name
+    -> wrapper) in the forward and in the generation."""
     import dataclasses
 
     from repro_torch.models import sampling, transformer
@@ -533,7 +656,7 @@ def parity_run(cfg, seed: int, kernels: dict) -> dict:
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(seed)
     params = transformer.init_params(gen, cfg)
-    prompt = torch.randint(0, cfg.vocab_size, (2, 512), generator=gen,
+    prompt = torch.randint(0, cfg.vocab_size, (batch, 512), generator=gen,
                            device=dev, dtype=torch.int32)
     tol = 1e-4
     with torch.no_grad():
@@ -580,15 +703,72 @@ def greedy_vs_teacher_forcing(transformer, params, prompt, out, cfg):
     return ties
 
 
-def whole_model_run(cfg, seeds, kernels: dict, prefill_names,
-                    decode_names) -> dict:
-    """(b) of phases 8 and 11: ``cfg`` whole (bf16 weights from
-    ``seeds[0]``), B 1, a 4096-token prompt from ``seeds[1]``: the prefill
-    and 32 decode steps timed by CUDA events, the launches of each of
-    ``kernels`` in each, and the device time of a prefill and of a decode
-    step by kernel family (``torch.profiler``)."""
+def family_split(fn, names, n_other: int = 4):
+    """Device ms of one call of ``fn`` by kernel family, and the
+    ``n_other`` largest kernels of the family "other", by name. Every
+    kernel is first put in its family by name: the first of ``names`` it
+    holds (the port's own kernels, launched through ctypes, have no torch
+    op above them), the matmuls (cuBLAS/CUTLASS), or "other". A kernel
+    that a torch op launched inside ``moe_block``'s "moe_experts" span (its
+    two expert products and the SiLU between them) then moves to the family
+    "moe_experts", and one launched elsewhere inside its "moe_block" span
+    (routing, slots, dispatch and combine gathers) to
+    "moe_route_dispatch_combine" (``torch.profiler`` with CPU and CUDA
+    activity); a model without MoE layers has no such span."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    spans = ("moe_experts", "moe_block")
+    out = {n: 0.0 for n in (*names, "moe_experts",
+                            "moe_route_dispatch_combine", "matmul", "other")}
+    other = {}
+
+    def family(name):
+        key = name.lower()
+        return next((n for n in names if n in key), None) or (
+            "matmul" if any(m in key for m in (
+                "gemm", "gemv", "xmma", "cutlass", "cublas", "nvjet",
+                "matmul")) else "other")
+
+    def add(fam, name, ms):
+        out[fam] += ms
+        if fam == "other":
+            other[name[:60]] = other.get(name[:60], 0.0) + ms
+
+    events = prof.events()
+    for e in events:            # every kernel, by name
+        if e.device_type == DeviceType.CUDA and e.name not in spans \
+                and not getattr(e, "is_user_annotation", False):
+            add(family(e.name), e.name, e.device_time_total / 1e3)
+    for e in events:            # those launched inside a span move to it
+        if e.device_type != DeviceType.CPU or not e.kernels:
+            continue
+        enclosing, parent = set(), e
+        while parent is not None:
+            enclosing.add(parent.name)
+            parent = parent.cpu_parent
+        span = ("moe_experts" if "moe_experts" in enclosing else
+                "moe_route_dispatch_combine" if "moe_block" in enclosing
+                else None)
+        for k in e.kernels:
+            if span and k.name not in spans:
+                add(family(k.name), k.name, -k.duration / 1e3)
+                out[span] += k.duration / 1e3
+    top = dict(sorted(other.items(), key=lambda kv: -kv[1])[:n_other])
+    return out, top
+
+
+def whole_model_run(cfg, seeds, kernels: dict, prefill_names,
+                    decode_names) -> dict:
+    """(b) of phases 8, 11, 13 and 14: ``cfg`` whole or cut (bf16 weights
+    from ``seeds[0]``), B 1, a 4096-token prompt from ``seeds[1]``: the
+    prefill and 32 decode steps timed by CUDA events, the launches of each
+    of ``kernels`` in each, and the device time of a prefill and of a
+    decode step by kernel family (``family_split``)."""
     from repro_torch.convert import flatten_params
     from repro_torch.models import transformer
 
@@ -636,15 +816,12 @@ def whole_model_run(cfg, seeds, kernels: dict, prefill_names,
                      for n, k in kernels.items()}
         if not torch.isfinite(last.float()).all():
             raise AssertionError("non-finite logits after 32 decode steps")
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            transformer.prefill(params, prompt, cfg, width)
-            torch.cuda.synchronize()
-        pre_split, pre_other = kernel_split(prof, prefill_names)
+        pre_split, pre_other = family_split(
+            lambda: transformer.prefill(params, prompt, cfg, width),
+            prefill_names)
         logits, cache = transformer.prefill(params, prompt, cfg, width)
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            decode_loop(logits, cache, 8)
-            torch.cuda.synchronize()
-        dec_split, dec_other = kernel_split(prof, decode_names)
+        dec_split, dec_other = family_split(
+            lambda: decode_loop(logits, cache, 8), decode_names)
     del params, cache, logits
     torch.cuda.empty_cache()
     per_step = lambda split: {k: v / 8 for k, v in split.items()}
@@ -715,8 +892,8 @@ def transformer_phases(fa, da):
 
 
 def lm_router_phase(kernel, arch: str = "starcoder2_3b", layers: int = 2):
-    """Phases 9 and 12: the LM router with ``arch``'s experts at full width,
-    depth cut to ``layers``; every prompt completes, the launches of
+    """Phases 9, 12 and 15: the LM router with ``arch``'s experts at full
+    width, depth cut to ``layers``; every prompt completes, the launches of
     ``kernel`` (the wrapper of the one kernel each layer runs once a
     forward: flash attention, or the selective scan) = layers x expert
     forwards, and every served forward's tokens equal the plain-torch path
@@ -790,21 +967,167 @@ def lm_router_phase(kernel, arch: str = "starcoder2_3b", layers: int = 2):
     return lines, launches
 
 
+@contextlib.contextmanager
+def wrapped(module, name: str, wrapper):
+    """Within the block, ``module.<name>`` is ``wrapper(original)``."""
+    original = getattr(module, name)
+    setattr(module, name, wrapper(original))
+    try:
+        yield
+    finally:
+        setattr(module, name, original)
+
+
+def moe_drops(records: list):
+    """Within the block, every ``moe_block`` call of a single group (at most
+    ``GROUP_SIZE`` tokens) also appends to ``records`` its capacity, each
+    expert's load ([E], as the call returned it) and each token's choices
+    past the capacity ([t]), from its router's choices and slots counted
+    as the reference counts them (a cumsum of one-hots), whose loads must
+    equal the call's."""
+    import torch.nn.functional as F
+
+    from repro_torch.models import moe
+
+    def recording(block):
+        def call(p, h, c, cdtype=torch.bfloat16):
+            b, s, d = h.shape
+            t = b * s
+            if t > moe.GROUP_SIZE:
+                raise ValueError(f"{t} tokens: more than one MoE group")
+            out, aux, load = block(p, h, c, cdtype)
+            _, _, top_i = moe.route(p, h.reshape(1, t, d), c, cdtype)
+            flat = top_i[0].reshape(-1)
+            oh = F.one_hot(flat, c.moe_num_experts)
+            if not torch.equal(oh.sum(0).to(load.dtype), load):
+                raise AssertionError("moe_block's expert_load differs from "
+                                     "its router's one-hot counts")
+            slot = (oh.cumsum(0) - 1).gather(1, flat[:, None])[:, 0]
+            cap = moe.expert_capacity(t, c)
+            records.append({"cap": cap, "load": load,
+                            "dropped": (slot >= cap).reshape(t, -1).sum(-1)})
+            return out, aux, load
+        return call
+
+    return wrapped(moe, "moe_block", recording)
+
+
+def pinned_routing(own: list, pinned=None):
+    """Within the block, every ``moe.route`` call appends its own router's
+    probabilities and chosen experts to ``own``; with ``pinned`` (the
+    ``own`` list of an earlier run of the same forward), it then routes
+    each token to the experts that run chose at the same call, their
+    weights from this call's own probabilities, renormalised. Two paths
+    run with one set of choices compute the same function, so their
+    logits can be compared on every row."""
+    from repro_torch.models import moe
+
+    def pinning(route):
+        def call(params, xg, cfg, cdtype):
+            probs, top_w, top_i = route(params, xg, cfg, cdtype)
+            own.append({"probs": probs, "experts": top_i})
+            if pinned is not None:
+                top_i = pinned[len(own) - 1]["experts"]
+                top_w = probs.gather(-1, top_i)
+                top_w = top_w / torch.clamp(top_w.sum(-1, keepdim=True),
+                                            min=1e-9)
+            return probs, top_w, top_i
+        return call
+
+    return wrapped(moe, "route", pinning)
+
+
+def router_near_ties(pinned, own, seq: int) -> set:
+    """The rows whose tokens' own routers chose other experts than the
+    pinned run's at some MoE call. Every such token must sit at a near-tie:
+    the gap between its k-th and (k+1)-th probabilities at most twice the
+    two runs' difference in them."""
+    rows = set()
+    for p, o in zip(pinned, own):
+        k = p["experts"].shape[-1]
+        probs_p = p["probs"].reshape(-1, p["probs"].shape[-1])
+        probs_o = o["probs"].reshape(probs_p.shape)
+        flips = (p["experts"].sort(-1).values
+                 != o["experts"].sort(-1).values).any(-1).reshape(-1)
+        for tok in torch.nonzero(flips).flatten().tolist():
+            top = torch.sort(probs_o[tok], descending=True).values
+            gap = (top[k - 1] - top[k]).item()
+            dprob = (probs_p[tok] - probs_o[tok]).abs().max().item()
+            if gap > 2 * dprob:
+                chose = [r["experts"].reshape(-1, k)[tok].tolist()
+                         for r in (p, o)]
+                raise AssertionError(
+                    f"token {tok}: routed to {chose[0]} and {chose[1]} with "
+                    f"a gap of {gap} between its k-th and next "
+                    f"probabilities (the runs differ by {dprob})")
+            rows.add(tok // seq)
+    return rows
+
+
+# check_served with MoE experts: rows beyond the bf16 tolerance are held
+# against a float32 forward, by the RMS over the vocabulary of each path's
+# distance to it, kernel path over plain path: at most ROW_RATIO on each
+# such row and POOLED_RATIO pooled over all rows, while the kernel path
+# with its flash outputs scaled by 1 + each of CONTROL_ERRORS is also run,
+# and the last of them must fail the pooled bound. The bounds are set from
+# this check's readings on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md):
+# the sound rows' largest ratio 1.52, pooled 0.996; a flash output off by
+# 2^-5 pooled 1.12, by one bf16 ulp (2^-7) 1.03.
+ROW_RATIO = 2.0
+POOLED_RATIO = 1.05
+CONTROL_ERRORS = (2.0 ** -7, 2.0 ** -5)
+
+
+def scaled_flash(err: float):
+    """A wrapper of ``flash_attention_op`` whose outputs are off by a
+    factor 1 + ``err``: the fault that check_served's control runs."""
+    def wrap(op):
+        def call(*args, **kwargs):
+            out = op(*args, **kwargs)
+            return (out.float() * (1 + err)).to(out.dtype)
+        return call
+    return wrap
+
+
 def check_served(store, served, cfg):
-    """Every forward phase 9 served, run again on the same padded batch
-    through the kernel path and the plain-torch path: the last position's
-    logits of the two agree within the bf16 tolerance, the served tokens
-    are the kernel path's argmax, and they equal the plain path's argmax
-    but on rows whose top two logits lie within the two paths' difference
-    (a near-tie either path may break)."""
+    """Every forward phase 9, 12 or 15 served, run again on the same padded
+    batch through the kernel path and the plain-torch path: the last
+    position's logits of the two agree within the bf16 tolerance, the
+    served tokens are the kernel path's argmax, and they equal the plain
+    path's argmax but on rows whose top two logits lie within the two
+    paths' difference (a near-tie either path may break).
+
+    With MoE layers, the plain path (and a float32-compute plain run) route
+    every token to the experts the kernel path chose (``pinned_routing``),
+    so that every row stays comparable; where its own router chose other
+    experts, the token must sit at a router near-tie (``router_near_ties``),
+    and such rows are counted. These random weights amplify bf16 roundings
+    (``w_in`` is drawn at 1/sqrt(experts), so an expert's output reaches ~30
+    a component): two correct bf16 paths routed alike differ by more than
+    the tolerance on some rows, each about as far from the float32 logits
+    as the other. Such rows are counted, and held to the float32 logits
+    (``ROW_RATIO``, ``POOLED_RATIO``); control runs with a flash output
+    off by each of ``CONTROL_ERRORS`` show what the pooled bound can tell
+    apart, and the check fails if the largest of them passes it."""
     import dataclasses
 
     from repro_torch.convert import nest_params
-    from repro_torch.models import transformer
+    from repro_torch.models import layers, transformer
 
     tol = 5e-2          # bf16 compute: a few roundings of 2^-8 on logits ~1
     plain_cfg = dataclasses.replace(cfg, attn_impl="xla")
-    worst, rows, ties = 0.0, 0, 0
+    exact_cfg = dataclasses.replace(plain_cfg, compute_dtype="float32")
+    has_moe = any(s.ffn == "moe" for s in cfg.block_pattern())
+    worst, rows, ties, tie_rows, beyond = 0.0, 0, 0, 0, 0
+    row_ratio = 0.0
+    # sums over rows of the mean square distance to the float32 logits:
+    # the kernel path, the plain path, each control
+    sq = {"kernel": 0.0, "plain": 0.0, **{e: 0.0 for e in CONTROL_ERRORS}}
+
+    def fwd(params, x, c):
+        return transformer.forward(params, x, c, mode="eval")[0][
+            :, -1].float()
+
     for eid in sorted({e for e, _, _ in served}):
         params = nest_params({k: v.to("cuda") for k, v in
                               store.fetch(eid)[0].items()})
@@ -812,14 +1135,41 @@ def check_served(store, served, cfg):
             if e != eid:
                 continue
             x = tokens.cuda()
-            with torch.no_grad():
-                kern = transformer.forward(params, x, cfg,
-                                           mode="eval")[0][:, -1].float()
-                plain = transformer.forward(params, x, plain_cfg,
-                                            mode="eval")[0][:, -1].float()
+            kern_rec, plain_rec, exact_rec = [], [], []
+            with torch.no_grad(), pinned_routing(kern_rec):
+                kern = fwd(params, x, cfg)
+            with torch.no_grad(), pinned_routing(plain_rec, kern_rec):
+                plain = fwd(params, x, plain_cfg)
             diff = (kern - plain).abs()
             worst = max(worst, diff.max().item())
-            if not torch.allclose(kern, plain, rtol=tol, atol=tol):
+            within = torch.isclose(kern, plain, rtol=tol, atol=tol).all(-1)
+            if has_moe:
+                with torch.no_grad(), pinned_routing(exact_rec, kern_rec):
+                    exact = fwd(params, x, exact_cfg)
+                tie_rows += len(router_near_ties(kern_rec, plain_rec,
+                                                 x.shape[1])
+                                | router_near_ties(kern_rec, exact_rec,
+                                                   x.shape[1]))
+                ms = lambda y: (y - exact).pow(2).mean(-1)     # [rows]
+                ek, ep = ms(kern), ms(plain)
+                sq["kernel"] += ek.sum().item()
+                sq["plain"] += ep.sum().item()
+                for err in CONTROL_ERRORS:
+                    with torch.no_grad(), pinned_routing([], kern_rec), \
+                            wrapped(layers, "flash_attention_op",
+                                    scaled_flash(err)):
+                        sq[err] += ms(fwd(params, x, cfg)).sum().item()
+                for row in torch.nonzero(~within).flatten().tolist():
+                    ratio = (ek[row] / ep[row]).sqrt().item()
+                    row_ratio = max(row_ratio, ratio)
+                    if ratio > ROW_RATIO:
+                        raise AssertionError(
+                            f"{eid} row {row}: the kernel path's logits lie "
+                            f"{ratio} times as far from the float32 logits "
+                            f"as the plain path's (bound {ROW_RATIO})")
+                    within[row] = True
+                    beyond += 1
+            if not within.all():
                 raise AssertionError(
                     f"{eid}: last-position logits, kernel vs plain path, "
                     f"max |err| {diff.max().item()} > tol {tol}")
@@ -844,7 +1194,30 @@ def check_served(store, served, cfg):
     line = {"check": "served vs plain path", "forwards": len(served),
             "rows": rows, "near_ties": ties, "logits_max_abs_err": worst,
             "tol": tol}
+    if has_moe:
+        pooled = {k: math.sqrt(v / sq["plain"]) for k, v in sq.items()
+                  if k != "plain"}
+        line.update({
+            "router_near_tie_rows": tie_rows,
+            "rows_beyond_tol_held_to_float32": beyond,
+            "row_rms_to_float32_kernel_over_plain_max": row_ratio,
+            "row_bound": ROW_RATIO,
+            "pooled_rms_to_float32_kernel_over_plain": pooled["kernel"],
+            "pooled_bound": POOLED_RATIO,
+            "controls_pooled": {f"flash x (1 + {e})": pooled[e]
+                                for e in CONTROL_ERRORS}})
     print(json.dumps(line), flush=True)
+    if has_moe:
+        if pooled["kernel"] > POOLED_RATIO:
+            raise AssertionError(
+                f"the kernel path's logits lie {pooled['kernel']} times as "
+                f"far from the float32 logits as the plain path's, pooled "
+                f"over {rows} rows (bound {POOLED_RATIO})")
+        if pooled[CONTROL_ERRORS[-1]] <= POOLED_RATIO:
+            raise AssertionError(
+                f"a flash output off by {CONTROL_ERRORS[-1]} passes the "
+                f"pooled bound ({pooled[CONTROL_ERRORS[-1]]}): the check "
+                "cannot tell it from rounding")
     return line
 
 
@@ -1073,6 +1446,314 @@ def falcon_phases(ms):
     return summary_a, summary_b
 
 
+def check_launches(summary, want: dict, key: str) -> None:
+    if summary[key] != want:
+        raise AssertionError(f"{summary['phase']}: {key} {summary[key]}, "
+                             f"the path gives {want}")
+
+
+def moe_weight_floor(cfg) -> dict:
+    """The expert weights one decode step reads, at most (every expert, as
+    the dense-capacity dispatch runs them) and at least (the chosen top-k
+    experts), and their times at the card's memory rate."""
+    ff = cfg.moe_d_ff or cfg.d_ff
+    n_moe = cfg.num_periods() * sum(s.ffn == "moe"
+                                    for s in cfg.block_pattern())
+    size = 2 if cfg.param_dtype == "bfloat16" else 4
+    per_expert = 3 * cfg.d_model * ff * size * n_moe
+    every = cfg.moe_num_experts * per_expert
+    chosen = cfg.moe_top_k * per_expert
+    return {"all_experts_gb": every / 1e9,
+            "all_experts_ms": every / HBM_BYTES_PER_S * 1e3,
+            "chosen_experts_gb": chosen / 1e9,
+            "chosen_experts_ms": chosen / HBM_BYTES_PER_S * 1e3}
+
+
+def moonlight_phases(fa, da):
+    """Phase 13 at Moonlight-16B-A3B's published width; returns (a)'s and
+    (b)'s summaries."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer
+
+    base = dataclasses.replace(get_config("moonshot_v1_16b_a3b"),
+                               remat=False, attn_impl="pallas")
+    kernels = {"flash_attention": fa.flash_attention,
+               "decode_attention": da.decode_attention}
+    # (a) parity: 2 layers in float32. Generation runs dropless decode
+    # steps while teacher forcing routes prompt and new tokens in one group,
+    # so both are held at a capacity factor of E / k, where every expert
+    # can take every token (dropless); at the published 1.25 the two differ
+    # by the tokens the forward drops, which is the layer's semantics.
+    dropless = base.moe_num_experts / base.moe_top_k
+    cfg = dataclasses.replace(base, num_layers=2, compute_dtype="float32",
+                              moe_capacity_factor=dropless)
+    summary_a = {"phase": "13a parity, 2 layers fp32, capacity factor "
+                          f"{dropless:.4f} (E/k, dropless)",
+                 **parity_run(cfg, 10, kernels)}
+    print(json.dumps(summary_a), flush=True)
+    n = cfg.num_layers
+    check_launches(summary_a, {"flash_attention": n, "decode_attention": 0},
+                   "launches_forward")
+    check_launches(summary_a, {"flash_attention": n,
+                               "decode_attention": n * 15},
+                   "launches_generate")
+    # the published capacity factor: what a 4096-token prompt drops
+    cfg = dataclasses.replace(cfg, moe_capacity_factor=
+                              base.moe_capacity_factor)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(10)
+    params = transformer.init_params(gen, cfg)
+    prompt = torch.randint(0, cfg.vocab_size, (1, 4096), generator=gen,
+                           device=dev, dtype=torch.int32)
+    records = []
+    with torch.no_grad(), moe_drops(records):
+        transformer.forward(params, prompt, cfg)
+    drops = {"phase": "13a drops at the published capacity factor",
+             "capacity_factor": cfg.moe_capacity_factor, "tokens": 4096,
+             "layers": [{"capacity": r["cap"],
+                         "tokens_with_a_dropped_choice":
+                             int((r["dropped"] > 0).sum()),
+                         "choices_dropped": int(r["dropped"].sum()),
+                         "choices": int(r["load"].sum()),
+                         "expert_load": r["load"].tolist()}
+                        for r in records]}
+    print(json.dumps(drops), flush=True)
+    del params, records
+    torch.cuda.empty_cache()
+
+    # (b) the whole model: 48 layers, bf16 weights and compute
+    cfg = dataclasses.replace(base, param_dtype="bfloat16")
+    summary_b = {"phase": "13b moonlight-16b-a3b, 48 layers bf16",
+                 "decode_weight_floor": moe_weight_floor(cfg),
+                 **whole_model_run(cfg, (11, 12), kernels,
+                                   ("flash_wgmma_kernel",
+                                    "flash_bf16_kernel"),
+                                   ("decode_attention_kernel",))}
+    print(json.dumps(summary_b), flush=True)
+    n = cfg.num_layers
+    check_launches(summary_b, {"flash_attention": n, "decode_attention": 0},
+                   "launches_prefill")
+    check_launches(summary_b, {"flash_attention": 0,
+                               "decode_attention": n * 32},
+                   "launches_32_decode_steps")
+    return summary_a, drops, summary_b
+
+
+def jamba_phases(fa, da, ms):
+    """Phase 14: Jamba-v0.1 with its MoE; returns (a)'s and (b)'s
+    summaries. Its whole 32 layers (103 GB in bf16) do not fit one card, so
+    the depth is cut to whole periods of 8 layers: one in float32, two in
+    bf16."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    base = dataclasses.replace(get_config("jamba_v0_1_52b"), remat=False,
+                               attn_impl="pallas")
+    kernels = {"flash_attention": fa.flash_attention,
+               "decode_attention": da.decode_attention,
+               "mamba_scan": ms.mamba_scan}
+    # (a) one period in float32, B 1, dropless as in 13(a)
+    dropless = base.moe_num_experts / base.moe_top_k
+    cfg = dataclasses.replace(base, num_layers=8, compute_dtype="float32",
+                              moe_capacity_factor=dropless)
+    summary_a = {"phase": "14a parity, 8 layers fp32 (one period, the depth "
+                          f"cut), capacity factor {dropless:.1f} (E/k, "
+                          "dropless)",
+                 **parity_run(cfg, 13, kernels, batch=1)}
+    print(json.dumps(summary_a), flush=True)
+    check_launches(summary_a, {"flash_attention": 1, "decode_attention": 0,
+                               "mamba_scan": 7}, "launches_forward")
+    check_launches(summary_a, {"flash_attention": 1, "decode_attention": 15,
+                               "mamba_scan": 7}, "launches_generate")
+
+    # (b) two periods in bf16
+    cfg = dataclasses.replace(base, num_layers=16, param_dtype="bfloat16")
+    summary_b = {"phase": "14b jamba-v0.1, 16 of 32 layers bf16 (the depth "
+                          "cut: 103 GB whole)",
+                 "decode_weight_floor": moe_weight_floor(cfg),
+                 **whole_model_run(cfg, (14, 15), kernels,
+                                   ("flash_wgmma_kernel",
+                                    "flash_bf16_kernel", "mamba_scan"),
+                                   ("decode_attention_kernel",))}
+    print(json.dumps(summary_b), flush=True)
+    check_launches(summary_b, {"flash_attention": 2, "decode_attention": 0,
+                               "mamba_scan": 14}, "launches_prefill")
+    check_launches(summary_b, {"flash_attention": 0, "decode_attention": 64,
+                               "mamba_scan": 0}, "launches_32_decode_steps")
+    return summary_a, summary_b
+
+
+def audio_embeds(seed: int, batch: int, frames: int, d: int):
+    """The stub frontend's frame embeddings, drawn with numpy."""
+    emb = np.random.RandomState(seed).standard_normal((batch, frames, d))
+    return torch.from_numpy(emb.astype(np.float32)).cuda()
+
+
+def whisper_phases(fa, da):
+    """Phase 16 at Whisper-medium's published width; returns (a)'s and
+    (b)'s summaries."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.convert import flatten_params
+    from repro_torch.models import encdec
+
+    base = dataclasses.replace(get_config("whisper_medium"), remat=False,
+                               attn_impl="pallas")
+    kernels = {"flash_attention": fa.flash_attention,
+               "decode_attention": da.decode_attention}
+    dev = torch.device("cuda")
+    frames = base.encoder_seq
+
+    def counts():
+        return {n: k.launches for n, k in kernels.items()}
+
+    def since(before):
+        return {n: k.launches - before[n] for n, k in kernels.items()}
+
+    # (a) 2 + 2 layers in float32, B 2: the kernels' path against the plain
+    # one (encode, teacher-forced logits), then prefill of 60 tokens and 4
+    # greedy decode steps, each against the teacher-forced decoder
+    cfg = dataclasses.replace(base, num_layers=2, encoder_layers=2,
+                              compute_dtype="float32")
+    plain_cfg = dataclasses.replace(cfg, attn_impl="xla")
+    gen = torch.Generator(device=dev).manual_seed(16)
+    params = encdec.init_params(gen, cfg)
+    emb = audio_embeds(16, 2, frames, cfg.d_model)
+    toks = torch.randint(0, cfg.logical_vocab_size, (2, 64), generator=gen,
+                         device=dev, dtype=torch.int32)
+    tol = 1e-4
+    summary_a = {"phase": "16a parity, 2 + 2 layers fp32", "tol": tol}
+    with torch.no_grad():
+        before = counts()
+        enc = encdec.encode(params, emb, cfg)
+        summary_a["launches_encode"] = since(before)
+        want_enc = encdec.encode(params, emb, plain_cfg)
+        before = counts()
+        got = encdec.decode_train(params, toks, emb, cfg)
+        summary_a["launches_decode_train"] = since(before)
+        want = encdec.decode_train(params, toks, emb, plain_cfg)
+        for name, a, b in (("encode", enc, want_enc),
+                           ("decode_train", got, want)):
+            err = (a - b).abs().max().item()
+            summary_a[f"{name}_max_abs_err"] = err
+            if not torch.allclose(a, b, rtol=tol, atol=tol):
+                raise AssertionError(f"16a {name}: kernels vs plain path, "
+                                     f"max |err| {err} > tol {tol}")
+        before = counts()
+        last, cache = encdec.prefill(params, toks[:, :60], emb, cfg, 64)
+        summary_a["launches_prefill"] = since(before)
+        seq, step_err = toks[:, :60], 0.0
+        before = counts()
+        for pos in range(60, 64):
+            tok = torch.argmax(last, -1)[:, None].to(torch.int32)
+            seq = torch.cat([seq, tok], dim=1)
+            last, cache = encdec.decode_step(params, tok, pos, cache, cfg)
+            full = encdec.decode_train(params, seq, emb, cfg)[:, -1]
+            step_err = max(step_err, (last - full).abs().max().item())
+            if not torch.allclose(last, full, rtol=2e-4, atol=2e-4):
+                raise AssertionError(f"16a decode step at {pos}: max |err| "
+                                     f"{step_err} against the teacher-forced "
+                                     "decoder")
+        summary_a["decode_step_vs_teacher_forcing_max_abs_err"] = step_err
+    print(json.dumps(summary_a), flush=True)
+    check_launches(summary_a, {"flash_attention": 2, "decode_attention": 0},
+                   "launches_encode")
+    check_launches(summary_a, {"flash_attention": 6, "decode_attention": 0},
+                   "launches_decode_train")
+    check_launches(summary_a, {"flash_attention": 6, "decode_attention": 0},
+                   "launches_prefill")
+    del params, cache, enc, want_enc, got, want
+    torch.cuda.empty_cache()
+
+    # (b) the whole model in bf16: B 1, 1500 frames, a 64-token prompt and
+    # 32 decode steps
+    cfg = dataclasses.replace(base, param_dtype="bfloat16")
+    params = encdec.init_params(torch.Generator(device=dev).manual_seed(17),
+                                cfg)
+    flat = flatten_params(params)
+    n_params = sum(t.numel() for t in flat.values())
+    nbytes = sum(t.numel() * t.element_size() for t in flat.values())
+    del flat
+    emb = audio_embeds(17, 1, frames, cfg.d_model)
+    prompt = torch.randint(0, cfg.logical_vocab_size, (1, 64), device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(
+                               18), dtype=torch.int32)
+    width, steps = 64 + 32, 32
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+
+    def decode_loop(logits, cache, n):
+        tok = torch.argmax(logits, -1).to(torch.int32)
+        for i in range(n):
+            logits, cache = encdec.decode_step(params, tok[:, None], 64 + i,
+                                               cache, cfg)
+            tok = torch.argmax(logits, -1).to(torch.int32)
+        return logits
+
+    def timed(fn):
+        start.record()
+        out = fn()
+        end.record()
+        end.synchronize()
+        return out, start.elapsed_time(end)
+
+    names = ("flash_wgmma_kernel", "flash_bf16_kernel",
+             "decode_attention_kernel")
+    with torch.no_grad():
+        encdec.prefill(params, prompt, emb, cfg, width)          # warm
+        torch.cuda.synchronize()
+        _, encode_ms = timed(lambda: encdec.encode(params, emb, cfg))
+        before = counts()
+        (logits, cache), prefill_ms = timed(
+            lambda: encdec.prefill(params, prompt, emb, cfg, width))
+        at_prefill = since(before)
+        before = counts()
+        last, decode_ms = timed(lambda: decode_loop(logits, cache, steps))
+        in_decode = since(before)
+        if not torch.isfinite(last.float()).all():
+            raise AssertionError("non-finite logits after 32 decode steps")
+        pre_split, pre_other = family_split(
+            lambda: encdec.prefill(params, prompt, emb, cfg, width), names)
+        logits, cache = encdec.prefill(params, prompt, emb, cfg, width)
+        dec_split, dec_other = family_split(
+            lambda: decode_loop(logits, cache, 8), names)
+    del params, cache, logits
+    torch.cuda.empty_cache()
+    summary_b = {"phase": "16b whisper-medium, 24 + 24 layers bf16",
+                 "params": n_params, "weights_gb": nbytes / 1e9,
+                 "frames": frames, "prompt": 64, "encode_ms": encode_ms,
+                 "prefill_ms": prefill_ms,
+                 "decode_ms_per_token": decode_ms / steps,
+                 "launches_prefill": at_prefill,
+                 "launches_32_decode_steps": in_decode,
+                 "prefill_device_ms_by_kernel": pre_split,
+                 "prefill_other_top_ms": pre_other,
+                 "decode_step_device_ms_by_kernel":
+                     {k: v / 8 for k, v in dec_split.items()},
+                 "decode_other_top_ms": {k: v / 8
+                                         for k, v in dec_other.items()}}
+    print(json.dumps(summary_b), flush=True)
+    check_launches(summary_b, {"flash_attention": 3 * cfg.num_layers,
+                               "decode_attention": 0}, "launches_prefill")
+    check_launches(summary_b, {"flash_attention": cfg.num_layers * steps,
+                               "decode_attention": cfg.num_layers * steps},
+                   "launches_32_decode_steps")
+    return summary_a, summary_b
+
+
+def mem_available_gb() -> float:
+    """The host's MemAvailable (``/proc/meminfo``), in GB."""
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1]) * 1024 / 1e9
+    raise RuntimeError("no MemAvailable in /proc/meminfo")
+
+
 def kernel_entry(name, source, replaces, launches, line) -> dict:
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
@@ -1108,6 +1789,8 @@ def main() -> int:
 
     phase("3 decode kernel vs plain")
     lines = kernel_vs_plain(da, ref)
+    two_streams(da, ref)
+    two_graphs(da, ref)
 
     phase("4 serving with decode (the first slice's main path)")
     decode_launches = serve_decode(serve, da, [
@@ -1133,7 +1816,7 @@ def main() -> int:
     flash_lines = flash_vs_plain(fa, ref)
 
     phase("8 the transformer at StarCoder2-3B's full width")
-    transformer_phases(fa, da)
+    _, starcoder = transformer_phases(fa, da)
 
     phase("9 LM-expert router, full width, 2 layers (the second slice's "
           "main path)")
@@ -1145,10 +1828,10 @@ def main() -> int:
     mamba_lines = mamba_vs_plain(ms, ref)
 
     phase("11 Falcon-Mamba-7B at its published width")
-    falcon_phases(ms)
+    _, falcon = falcon_phases(ms)
 
     phase("12 LM-expert router, Falcon-Mamba-7B experts, full width, 2 "
-          "layers (this slice's main path)")
+          "layers (the third slice's main path)")
     scan_lines, scan_launches = lm_router_phase(ms.mamba_scan,
                                                 "falcon_mamba_7b")
     for line in scan_lines:
@@ -1157,6 +1840,42 @@ def main() -> int:
             raise AssertionError(
                 f"{line['policy']}: the router's 16-token scans took "
                 f"{line['routes']}: all should take the seq kernel")
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    phase("13 Moonlight-16B-A3B at its published width")
+    _, _, moon = moonlight_phases(fa, da)
+
+    phase("14 Jamba-v0.1 with its MoE, depth cut to whole periods")
+    _, jamba = jamba_phases(fa, da, ms)
+
+    avail = mem_available_gb()
+    layers = 2 if avail >= 40 else 1
+    phase(f"15 LM-expert router, Moonlight-16B-A3B experts, full width, "
+          f"{layers} layers (this slice's main path)")
+    print(json.dumps({"host_mem_available_gb": avail, "layers": layers,
+                      "note": "2 layers need 25.4 GB of host memory for "
+                              "the seven experts; under 40 GB free the run "
+                              "takes 1 layer"}), flush=True)
+    _, moon_router_launches = lm_router_phase(
+        fa.flash_attention, "moonshot_v1_16b_a3b", layers)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    phase("16 Whisper-medium at its published width")
+    _, whisper = whisper_phases(fa, da)
+
+    # each kernel's launches on the main paths: the serving run, the
+    # routers and the five whole-model runs (8b, 11b, 13b, 14b, 16b), each
+    # counted from 0 around its run
+    for summary in (starcoder, falcon, moon, jamba, whisper):
+        for counts in (summary["launches_prefill"],
+                       summary["launches_32_decode_steps"]):
+            decode_launches += counts.get("decode_attention", 0)
+            flash_launches += counts.get("flash_attention", 0)
+            scan_launches += counts.get("mamba_scan", 0)
+    flash_launches += moon_router_launches
 
     rep = next(ln for ln in lines if ln["reported"])
     flash_rep = next(ln for ln in flash_lines if ln["reported"])

@@ -8,8 +8,11 @@ sources, in turns, on one CUDA card.
 <commit>:<path>`` of each into a git-ignored directory, or a throwaway
 variant of one); a kernel whose file is missing there is skipped. Each is
 built with this checkout's flags and called through its own C interface:
-the earlier decode kernel planned its splits in C
-(``coserve_decode_attention_splits``) and combined them in a second kernel;
+PR 13's decode kernel planned its splits in C
+(``coserve_decode_attention_splits``) and combined them in a second kernel,
+PRs 14-15's kept its combine tickets in the library (no ``tickets``
+argument, no ``coserve_decode_attention_max_rows``) and later builds take
+them from the caller;
 the earlier flash kernel took a bf16 flag where this one takes a route; the
 earlier scan's ``coserve_mamba_scan`` has the interface of this checkout's
 short route, while the current side is the wrapper, which routes by
@@ -63,13 +66,30 @@ MAMBA_SHAPES = [
 ]
 
 
+def _decode_interface(lib) -> str:
+    """Which C interface an earlier decode library has: "splits" (PR 13),
+    "library tickets" (PRs 14-15) or "caller tickets"."""
+    if hasattr(lib, "coserve_decode_attention_splits"):
+        return "splits"
+    if hasattr(lib, "coserve_decode_attention_max_rows"):
+        return "caller tickets"
+    return "library tickets"
+
+
 def _bind_decode(lib):
-    lib.coserve_decode_attention_splits.argtypes = [ctypes.c_int] * 4
-    lib.coserve_decode_attention_splits.restype = ctypes.c_int
     fn = lib.coserve_decode_attention
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
-                   + [ctypes.c_longlong] + [ctypes.c_int] * 4
-                   + [ctypes.c_void_p])
+    kind = _decode_interface(lib)
+    if kind == "splits":
+        lib.coserve_decode_attention_splits.argtypes = [ctypes.c_int] * 4
+        lib.coserve_decode_attention_splits.restype = ctypes.c_int
+        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+                       + [ctypes.c_longlong] + [ctypes.c_int] * 4
+                       + [ctypes.c_void_p])
+    else:
+        pointers = 6 if kind == "caller tickets" else 5
+        fn.argtypes = ([ctypes.c_void_p] * pointers + [ctypes.c_int] * 5
+                       + [ctypes.c_longlong] + [ctypes.c_int] * 6
+                       + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
 
 
@@ -114,20 +134,44 @@ def earlier_mamba(lib, x, dt, b_mat, c_mat, a, d_vec):
     return y, h
 
 
+_earlier_tickets = {}
+
+
 def earlier_decode(lib, q, k, v, pos, window):
+    """The earlier build's decode kernel through its own interface; a build
+    that takes its tickets from the caller gets one zeroed array of its
+    own (this module's calls run one after another)."""
     b, h, d = q.shape
     hkv, w = k.shape[1], k.shape[2]
     g = h // hkv
     sms = torch.cuda.get_device_properties(q.device).multi_processor_count
-    splits = lib.coserve_decode_attention_splits(b, hkv, w, sms)
+    stream = torch.cuda.current_stream().cuda_stream
+    flags = (int(q.dtype == BF16), int(k.dtype == BF16))
     out = torch.empty_like(q)
-    ws = torch.empty(b * hkv * splits * (g * d + 2 * g) if splits > 1 else 0,
-                     dtype=torch.float32, device=q.device)
-    rc = lib.coserve_decode_attention(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        ws.data_ptr() if splits > 1 else None, b, h, hkv, w, d, pos, window,
-        int(q.dtype == BF16), int(k.dtype == BF16), splits,
-        torch.cuda.current_stream().cuda_stream)
+    kind = _decode_interface(lib)
+    if kind == "splits":
+        splits = lib.coserve_decode_attention_splits(b, hkv, w, sms)
+        ws = torch.empty(b * hkv * splits * (g * d + 2 * g)
+                         if splits > 1 else 0, dtype=F32, device=q.device)
+        rc = lib.coserve_decode_attention(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            ws.data_ptr() if splits > 1 else None, b, h, hkv, w, d, pos,
+            window, *flags, splits, stream)
+    else:
+        tile, rows, splits = da.plan(b, hkv, w, d, g, k.element_size(), sms)
+        ws = torch.empty(b * hkv * -(-g // rows) * splits
+                         * (rows * d + 2 * rows) if splits > 1 else 0,
+                         dtype=F32, device=q.device)
+        ptrs = [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                ws.data_ptr() if splits > 1 else None]
+        if kind == "caller tickets":
+            if id(lib) not in _earlier_tickets:
+                _earlier_tickets[id(lib)] = torch.zeros(
+                    da.MAX_ROWS, dtype=torch.int32, device=q.device)
+            ptrs.append(_earlier_tickets[id(lib)].data_ptr())
+        rc = lib.coserve_decode_attention(
+            *ptrs, b, h, hkv, w, d, pos, window, *flags, tile, rows, splits,
+            stream)
     if rc:
         raise RuntimeError(f"earlier decode_attention: CUDA error {rc}")
     return out

@@ -44,20 +44,30 @@
 //     draws the last ticket adds all the splits in split order, so the
 //     result does not depend on which block finished last and is bitwise
 //     repeatable, and resets the counter to zero for the next call or
-//     graph replay. The counters are a zero-initialised array of this
-//     library, one per device; two calls must not run at once on two
-//     streams of one device.
+//     graph replay. The caller passes the counters: the wrapper keeps one
+//     zeroed array for each stream outside a capture and one for each
+//     (capture, stream), made inside the capture, so calls in flight on
+//     two streams, or in two graphs, never draw each other's tickets,
+//     while calls on one stream (or in one graph), which run in order,
+//     find the counters their predecessor reset. No call zeroes
+//     anything, so a launch stays one kernel; a graph holds one zeroing
+//     of its counters before its first call on each stream.
 // Later work: one launch for all the members of a decode step (a per-row
 // pos); the combine's reads of the partials are latency-bound chains.
 //
 // Plain C interface, loaded with ctypes (see ../decode_attention.py):
-//   int coserve_decode_attention(q, k, v, out, workspace, B, H, Hkv, W, D,
-//                                pos, window, q_bf16, kv_bf16, tile, rows,
-//                                splits, stream)
+//   int coserve_decode_attention(q, k, v, out, workspace, tickets, B, H,
+//                                Hkv, W, D, pos, window, q_bf16, kv_bf16,
+//                                tile, rows, splits, stream)
 //     -> a cudaError_t; 0 means the launch was accepted. A block takes
 //        `rows` query rows, so a kv head's G rows make ceil(G / rows)
 //        chunks; with splits > 1 the caller passes a float32 workspace of
-//        B * Hkv * chunks * splits * (rows * D + 2 * rows).
+//        B * Hkv * chunks * splits * (rows * D + 2 * rows) and `tickets`,
+//        B * Hkv * chunks <= coserve_decode_attention_max_rows() unsigned
+//        counters that are zero and that no call on another stream uses.
+//   int coserve_stream_capture_id(stream, unsigned long long* id)
+//     -> a cudaError_t; sets *id to the id of the capture `stream` is
+//        recording into, or to 0 when it records none.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -76,7 +86,7 @@ constexpr int kMaxOut = 16;      // outputs a thread: rows * D <= 4096
 constexpr int kMaxQuads = kMaxOut / 4;  // four outputs a quad
 constexpr int kMaxLaneD = 8;     // D / 32 elements of a K row per lane
 constexpr int kMaxCombine = 16384;     // splits * rows combine weights
-constexpr int kMaxRows = 1 << 16;  // B * Hkv * chunks with a counter each
+constexpr int kMaxRows = 1 << 16;  // B * Hkv * chunks with a ticket each
 constexpr float kNegInf = -1e30f;
 // the most dynamic shared memory a launch asks for: the barriers, the stages
 // (or the combine's weights, which reuse them), q (rows * D <= 4096), the
@@ -84,10 +94,6 @@ constexpr float kNegInf = -1e30f;
 constexpr int kMaxSmem = 128 + kStages * kMaxStageBytes + 4096 * 4 +
                          (4096 / 32) * kMaxTile * 4 + 3 * (4096 / 32) * 4 +
                          kMaxTile * 4 + 16;
-
-// one ticket counter per (batch, kv head, chunk); zero at load, reset by
-// each call
-__device__ unsigned int g_tickets[kMaxRows];
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
@@ -210,7 +216,8 @@ __global__ void __launch_bounds__(kThreads, 2)
     decode_attention_kernel(const TQ* __restrict__ q,
                             const TKV* __restrict__ k,
                             const TKV* __restrict__ v, TQ* __restrict__ out,
-                            float* __restrict__ ws, int num_heads,
+                            float* __restrict__ ws,
+                            unsigned int* __restrict__ tickets, int num_heads,
                             int num_kv_heads, int width, int head_dim,
                             long long pos, int window, float scale,
                             int tile_slots, int group_rows,
@@ -486,7 +493,7 @@ __global__ void __launch_bounds__(kThreads, 2)
   __threadfence();  // the partial is visible before the ticket is taken
   __syncthreads();
   if (tid == 0)
-    *last_s = atomicAdd(&g_tickets[bhc], 1u) == (unsigned)splits - 1;
+    *last_s = atomicAdd(&tickets[bhc], 1u) == (unsigned)splits - 1;
   __syncthreads();
   if (!*last_s) return;
   __threadfence();
@@ -537,13 +544,14 @@ __global__ void __launch_bounds__(kThreads, 2)
         o_blk[oc[i]] =
             from_float<TQ>(num[i] / fmaxf(den_s[oc[i] / D], 1e-30f));
   }
-  if (tid == 0) g_tickets[bhc] = 0;  // ready for the next call
+  if (tid == 0) tickets[bhc] = 0;  // ready for the stream's next call
 }
 
 template <typename TQ, typename TKV>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
-                   void* ws, int batch, int num_heads, int num_kv_heads,
-                   int width, int head_dim, long long pos, int window,
+                   void* ws, unsigned int* tickets, int batch,
+                   int num_heads, int num_kv_heads, int width,
+                   int head_dim, long long pos, int window,
                    int tile_slots, int group_rows, int splits,
                    cudaStream_t stream) {
   const int G = group_rows;  // the most rows a block takes
@@ -570,9 +578,9 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
   kernel<<<dim3(batch * num_kv_heads, splits, chunks), kThreads, smem,
            stream>>>(static_cast<const TQ*>(q), static_cast<const TKV*>(k),
                      static_cast<const TKV*>(v), static_cast<TQ*>(out),
-                     static_cast<float*>(ws), num_heads, num_kv_heads, width,
-                     head_dim, pos, window, scale, tile_slots, group_rows,
-                     stage_bytes);
+                     static_cast<float*>(ws), tickets, num_heads,
+                     num_kv_heads, width, head_dim, pos, window, scale,
+                     tile_slots, group_rows, stage_bytes);
   return cudaGetLastError();
 }
 
@@ -580,8 +588,9 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
 
 extern "C" int coserve_decode_attention(const void* q, const void* k,
                                         const void* v, void* out, void* ws,
-                                        int batch, int num_heads,
-                                        int num_kv_heads, int width,
+                                        void* tickets, int batch,
+                                        int num_heads, int num_kv_heads,
+                                        int width,
                                         int head_dim, long long pos,
                                         int window, int q_bf16, int kv_bf16,
                                         int tile_slots, int group_rows,
@@ -596,25 +605,41 @@ extern "C" int coserve_decode_attention(const void* q, const void* k,
       tile_slots > kMaxTile || tile_slots % 16 != 0 || splits < 1 ||
       splits > (width + tile_slots - 1) / tile_slots || chunks > 65535 ||
       (splits > 1 &&
-       (ws == nullptr || splits * group_rows > kMaxCombine ||
+       (ws == nullptr || tickets == nullptr ||
+        splits * group_rows > kMaxCombine ||
         (long long)batch * num_kv_heads * chunks > kMaxRows)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  unsigned int* t = static_cast<unsigned int*>(tickets);
   if (!q_bf16 && !kv_bf16)
-    return (int)launch<float, float>(q, k, v, out, ws, batch, num_heads,
+    return (int)launch<float, float>(q, k, v, out, ws, t, batch, num_heads,
                                      num_kv_heads, width, head_dim, pos,
                                      window, tile_slots, group_rows, splits,
                                      s);
   if (q_bf16 && kv_bf16)
     return (int)launch<__nv_bfloat16, __nv_bfloat16>(
-        q, k, v, out, ws, batch, num_heads, num_kv_heads, width, head_dim,
+        q, k, v, out, ws, t, batch, num_heads, num_kv_heads, width, head_dim,
         pos, window, tile_slots, group_rows, splits, s);
   if (!q_bf16 && kv_bf16)
     return (int)launch<float, __nv_bfloat16>(
-        q, k, v, out, ws, batch, num_heads, num_kv_heads, width, head_dim,
+        q, k, v, out, ws, t, batch, num_heads, num_kv_heads, width, head_dim,
         pos, window, tile_slots, group_rows, splits, s);
   return (int)cudaErrorInvalidValue;
 }
+
+extern "C" int coserve_stream_capture_id(void* stream,
+                                         unsigned long long* id) {
+  cudaStreamCaptureStatus status;
+  unsigned long long capture = 0;
+  cudaError_t err = cudaStreamGetCaptureInfo(
+      static_cast<cudaStream_t>(stream), &status, &capture);
+  if (err != cudaSuccess) return (int)err;
+  *id = status == cudaStreamCaptureStatusActive ? capture : 0;
+  return 0;
+}
+
+// the most (batch, kv head, row chunk) tickets a call with splits > 1 uses
+extern "C" int coserve_decode_attention_max_rows() { return kMaxRows; }
 
 extern "C" const char* coserve_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

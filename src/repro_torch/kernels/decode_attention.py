@@ -10,10 +10,15 @@ tensor launches the kernel or raises. ``decode_attention.launches`` counts
 the launches: one a call, the combine of the splits included.
 
 ``plan`` picks the kernel's tile and split counts from the shapes alone.
+A call with splits takes its combine tickets from the counters of the
+stream it runs on, or, in a CUDA graph capture, from counters of that
+capture's own (``_tickets_for``): calls in flight on two streams, and the
+replays of two graphs, never share them.
 """
 from __future__ import annotations
 
 import ctypes
+import threading
 from pathlib import Path
 
 import torch
@@ -65,10 +70,16 @@ def plan(batch: int, num_kv_heads: int, width: int, head_dim: int,
 
 def _bind(lib):
     fn = lib.coserve_decode_attention
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
                    + [ctypes.c_longlong] + [ctypes.c_int] * 6
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
+    if lib.coserve_decode_attention_max_rows() != MAX_ROWS:
+        raise RuntimeError("decode_attention: the library's ticket count "
+                           "differs from MAX_ROWS")
+    lib.coserve_stream_capture_id.argtypes = [
+        ctypes.c_void_p, ctypes.POINTER(ctypes.c_ulonglong)]
+    lib.coserve_stream_capture_id.restype = ctypes.c_int
     lib.coserve_cuda_error_string.argtypes = [ctypes.c_int]
     lib.coserve_cuda_error_string.restype = ctypes.c_char_p
 
@@ -106,6 +117,42 @@ def _check(q, k_cache, v_cache, window: int):
         raise ValueError(f"decode_attention: window {window} < 0")
 
 
+_tickets: dict = {}
+_tickets_lock = threading.Lock()
+
+
+def _raise_on(lib, rc: int, what: str) -> None:
+    if rc != 0:
+        raise RuntimeError(
+            f"decode_attention {what} failed: CUDA error {rc} "
+            f"({lib.coserve_cuda_error_string(rc).decode()})")
+
+
+def _tickets_for(lib, device: torch.device, stream) -> torch.Tensor:
+    """The combine tickets of the calls on ``stream``, ``MAX_ROWS`` zeroed
+    counters, made at the first such call and kept: one array for the
+    stream's calls outside a capture, and one for each CUDA graph capture
+    that records calls on it. The block that combines a call's splits
+    resets its counter, so the next call in stream order (or in the
+    graph) finds them zero again. An array made in a capture is zeroed
+    inside the graph, ahead of the graph's first call, so each replay
+    starts from zero whichever graphs ran before; the replays of two
+    graphs, and eager calls on other streams, never share counters. A
+    graph's array (256 KiB of its memory pool) is kept while the program
+    runs."""
+    capture = ctypes.c_ulonglong()
+    _raise_on(lib, lib.coserve_stream_capture_id(stream.cuda_stream,
+                                                 ctypes.byref(capture)),
+              "capture query")
+    key = (device.index, stream.cuda_stream, capture.value)
+    with _tickets_lock:
+        tickets = _tickets.get(key)
+        if tickets is None:
+            tickets = _tickets[key] = torch.zeros(
+                MAX_ROWS, dtype=torch.int32, device=device)
+    return tickets
+
+
 def decode_attention(q, k_cache, v_cache, pos, *, window: int = 0):
     """q: [B,H,D]; caches: [B,Hkv,W,D]; pos: absolute position of the new
     token -> [B,H,D] in q's dtype."""
@@ -125,16 +172,17 @@ def decode_attention(q, k_cache, v_cache, pos, *, window: int = 0):
                      if splits > 1 else 0, dtype=torch.float32,
                      device=q.device)
     with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
+        stream = torch.cuda.current_stream(q.device)
+        tickets = (_tickets_for(lib, q.device, stream).data_ptr()
+                   if splits > 1 else None)
         rc = lib.coserve_decode_attention(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-            out.data_ptr(), ws.data_ptr() if splits > 1 else None, b, h, hkv,
-            w, d, int(pos), int(window), int(q.dtype == torch.bfloat16),
-            int(k_cache.dtype == torch.bfloat16), tile, rows, splits, stream)
-    if rc != 0:
-        raise RuntimeError(
-            f"decode_attention kernel launch failed: CUDA error {rc} "
-            f"({lib.coserve_cuda_error_string(rc).decode()})")
+            out.data_ptr(), ws.data_ptr() if splits > 1 else None, tickets,
+            b, h, hkv, w, d, int(pos), int(window),
+            int(q.dtype == torch.bfloat16),
+            int(k_cache.dtype == torch.bfloat16), tile, rows, splits,
+            stream.cuda_stream)
+    _raise_on(lib, rc, "kernel launch")
     decode_attention.launches += 1
     return out
 

@@ -1,7 +1,8 @@
 """LM Collaboration-of-Experts (the paper's §2.1 Qihoo-360 scenario) on the
 card: a domain router dispatches prompts to specialised LM experts —
-StarCoder2-3B-shaped transformer stacks, or Falcon-Mamba-7B-shaped SSM
-stacks, with seeded random weights — served through CoServe with real
+StarCoder2-3B-shaped transformer stacks, Falcon-Mamba-7B-shaped SSM stacks
+or Moonlight-16B-A3B-shaped MoE stacks, with seeded random weights —
+served through CoServe with real
 disk -> host -> device loads. The twin of the JAX package's
 ``examples/lm_coe_router.py``: the same six domain experts plus a shared
 safety expert that depends on all six and checks every draft, the same
@@ -10,19 +11,28 @@ the experts' config is chosen by ``--arch``.
 
 Each expert's forward runs with ``attn_impl="pallas"``, so on the card its
 attention goes through the hand-written ``flash_attention`` kernel
-(StarCoder2-3B) or its selective scan through ``mamba_scan``
-(Falcon-Mamba-7B).
+(StarCoder2-3B, Moonlight-16B-A3B) or its selective scan through
+``mamba_scan`` (Falcon-Mamba-7B); Moonlight's MoE layers route each token
+to 6 of 64 experts (``models/moe.py``).
 
   python -m repro_torch.launch.lm_coe_router                     # smoke width, on the card
   python -m repro_torch.launch.lm_coe_router --width full --layers 2
   python -m repro_torch.launch.lm_coe_router --arch falcon_mamba_7b --width full --layers 2
+  python -m repro_torch.launch.lm_coe_router --arch moonshot_v1_16b_a3b --width full --layers 2
   python -m repro_torch.launch.lm_coe_router --device cpu        # on the host
 
 ``--width full`` is the published width: StarCoder2-3B's d_model 3072,
 24/2 heads of 128, d_ff 12288, vocab 49152; Falcon-Mamba-7B's d_model 4096,
-d_inner 8192, state 16, dt_rank 256, vocab 65024, its weights in bfloat16
-(below). ``--layers`` cuts the depth, and a report of the run names that
-cut.
+d_inner 8192, state 16, dt_rank 256, vocab 65024; Moonlight-16B-A3B's
+d_model 2048, 16 heads of 128, 64 experts of width 1408 (top-6), vocab
+163840; the last two with their weights in bfloat16 (below). ``--layers``
+cuts the depth, and a report of the run names that cut.
+
+With capacity routing (Moonlight's capacity factor 1.25) a served token
+can depend on the other prompts in its padded batch: above 64 tokens a
+group (a batch of 8 prompts of 16 tokens) an expert takes at most its
+capacity of choices and drops the rest, as the reference's GShard-style
+layer does.
 """
 from __future__ import annotations
 
@@ -48,7 +58,10 @@ from repro_torch.core.engines import (HostStore, RealEngine, resolve_device,
 from repro_torch.models import transformer
 from repro_torch.models.config import ModelConfig
 
-ARCHS = ("starcoder2_3b", "falcon_mamba_7b")
+ARCHS = ("starcoder2_3b", "falcon_mamba_7b", "moonshot_v1_16b_a3b")
+# full width keeps these experts' weights in bfloat16, the dtype they
+# compute in
+BF16_WEIGHTS = ("falcon_mamba_7b", "moonshot_v1_16b_a3b")
 DOMAINS = ["code", "math", "law", "chat", "bio", "finance"]
 N_REQS = 90
 PROMPT_TOKENS = 16
@@ -66,11 +79,13 @@ def lm_config(width: str = "smoke", layers: int = 0,
     serves it) or its published width, with ``layers`` > 0 cutting the
     depth.
 
-    Falcon-Mamba-7B at full width keeps its weights in bfloat16, the dtype
-    it computes in: at 2 layers an expert has 476.9 M parameters, 1.91 GB
-    in float32, so the seven experts would take 13.4 GB of host memory
-    (four of them written to the disk tier as well); in bfloat16 they take
-    6.7 GB and every forward skips a cast of its weights."""
+    Falcon-Mamba-7B and Moonlight-16B-A3B at full width keep their weights
+    in bfloat16, the dtype they compute in, so that every forward skips a
+    cast of its weights and the seven experts take half the host memory
+    (four of them are written to the disk tier as well): at 2 layers a
+    Falcon-Mamba expert has 476.9 M parameters, 6.7 GB for seven in
+    bfloat16 instead of 13.4 GB; a Moonlight expert 1.81 B, 25.4 GB for
+    seven instead of 50.7 GB."""
     if arch not in ARCHS:
         raise ValueError(f"arch must be one of {ARCHS}, got {arch!r}")
     cfg = get_config(arch)
@@ -78,7 +93,7 @@ def lm_config(width: str = "smoke", layers: int = 0,
         cfg = smoke_config(cfg)
     elif width != "full":
         raise ValueError(f"width must be 'smoke' or 'full', got {width!r}")
-    elif arch == "falcon_mamba_7b":
+    elif arch in BF16_WEIGHTS:
         cfg = dataclasses.replace(cfg, param_dtype="bfloat16")
     cfg = dataclasses.replace(cfg, remat=False, attn_impl="pallas")
     if layers:

@@ -43,7 +43,34 @@ def dense_init(gen: torch.Generator, shape, dtype, fan_in=None):
     fan_in = fan_in if fan_in is not None else shape[0]
     out = torch.empty(shape, dtype=torch.float32, device=gen.device)
     torch.nn.init.trunc_normal_(out, 0.0, 1.0, -2.0, 2.0, generator=gen)
-    return (out * (1.0 / math.sqrt(fan_in))).to(dtype)
+    return out.mul_(1.0 / math.sqrt(fan_in)).to(dtype)
+
+
+def init_stacked(make, n: int):
+    """``n`` draws of the parameter dict ``make()`` stacked along a new
+    leading axis, in draw order. Each draw is copied into tensors made for
+    all ``n`` at the first, and dropped, so that no stacked parameter is
+    ever held twice (MoE experts' stacked weights run to tens of GB)."""
+    def alloc(tree):
+        return {k: alloc(v) if isinstance(v, dict) else
+                torch.empty((n, *v.shape), dtype=v.dtype, device=v.device)
+                for k, v in tree.items()}
+
+    def fill(dst, tree, i):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                fill(dst[k], v, i)
+            else:
+                dst[k][i] = v
+
+    out = None
+    for i in range(n):
+        tree = make()
+        if out is None:
+            out = alloc(tree)
+        fill(out, tree, i)
+        del tree
+    return out
 
 
 def cast_param(p, compute_dtype):

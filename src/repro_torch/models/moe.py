@@ -1,0 +1,182 @@
+"""Grouped top-k MoE layer (capacity-based, batched-gather dispatch): the
+port of ``repro.models.moe``.
+
+Tokens are cut into groups of ``GROUP_SIZE`` (the tail zero-padded to a
+whole group; the padded rows are routed like the others, count in the aux
+loss and the expert load, and take capacity slots after every real token).
+Within a group each (token, choice) takes the next slot of its expert in
+token-major order (the reference's one-hot cumsum, computed here as a
+rank after a stable sort by expert: a cumsum over the group's t*k choices
+runs one long sequential scan per expert on the card); a choice past the
+expert's capacity is dropped, as in GShard. Dispatch is a batched gather of the tokens into an
+``[groups, experts, capacity, d]`` buffer, the expert FFN two matrix
+products batched over experts, and the combine a batched gather back to
+token order, weighted by the renormalised router probabilities.
+
+The reference computes all of this in plain ``jnp`` (no Pallas kernel), so
+the port computes it with torch tensor ops, with no loop over experts or
+tokens; the matrix products are ``torch.matmul``. Two points keep the
+port's choices equal to the reference's: ``jax.lax.top_k`` puts the lower
+index first among equal probabilities (a zero-padded row ties all of
+them), which a stable descending sort reproduces and ``torch.topk`` does
+not promise; and the slot positions are exact integer cumsums.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models.layers import cast_param, dense_init
+
+
+def init_moe(gen, cfg, dtype):
+    d = cfg.d_model
+    s = cfg.moe_ep_split
+    e = cfg.moe_num_experts * s                      # virtual experts
+    ff = (cfg.moe_d_ff or cfg.d_ff) // s
+    return {
+        "router": dense_init(gen, (d, cfg.moe_num_experts), dtype),
+        # gate/up fused along a pair dim [e, d, 2, ff]
+        "w_in": dense_init(gen, (e, d, 2, ff), dtype),
+        "w_down": dense_init(gen, (e, ff, d), dtype, fan_in=ff),
+    }
+
+
+GROUP_SIZE = 4096  # tokens per dispatch group
+
+
+def expert_capacity(group_size: int, cfg) -> int:
+    if group_size <= 64:
+        # tiny groups (decode steps, smoke tests): exactly dropless
+        return group_size
+    # GShard capacity, rounded up to a multiple of 8
+    cap = math.ceil(group_size * cfg.moe_top_k / cfg.moe_num_experts
+                    * cfg.moe_capacity_factor)
+    return max(8, min(group_size, ((cap + 7) // 8) * 8))
+
+
+def route(params, xg, cfg, compute_dtype):
+    """The router on grouped tokens ``xg`` [g, t, d]: (probs [g, t, E]
+    float32, top_w [g, t, k] renormalised, top_i [g, t, k] int64), the
+    chosen experts in descending probability and, among equal
+    probabilities, ascending index (as ``jax.lax.top_k`` orders them)."""
+    logits = (xg @ cast_param(params["router"], compute_dtype)).float()
+    probs = torch.softmax(logits, dim=-1)
+    top_w, top_i = torch.sort(probs, dim=-1, descending=True, stable=True)
+    k = cfg.moe_top_k
+    top_w, top_i = top_w[..., :k], top_i[..., :k]
+    top_w = top_w / torch.clamp(top_w.sum(-1, keepdim=True), min=1e-9)
+    return probs, top_w, top_i
+
+
+def _counts(idx, n: int):
+    """How often each of ``n`` values occurs in each row of ``idx`` [g, m]:
+    [g, n] int64, by a scatter-add (no reading of the indices on the host,
+    as ``torch.bincount`` and ``F.one_hot``'s range check do on a CUDA
+    tensor)."""
+    out = torch.zeros((idx.shape[0], n), dtype=torch.long, device=idx.device)
+    return out.scatter_add_(1, idx, torch.ones_like(idx))
+
+
+def moe_block(params, x, cfg, compute_dtype=torch.bfloat16):
+    """Returns (out [B,S,d], aux_loss float32 scalar, expert_load [E]
+    int32). The layer runs inside a profiler span "moe_block", and its
+    expert products inside one of their own, "moe_experts", so that a
+    trace can tell its kernels from the model's others."""
+    with torch.profiler.record_function("moe_block"):
+        return _moe_block(params, x, cfg, compute_dtype)
+
+
+def _moe_block(params, x, cfg, compute_dtype):
+    b, s, d = x.shape
+    t = b * s
+    k = cfg.moe_top_k
+    e = cfg.moe_num_experts
+
+    gsize = min(GROUP_SIZE, t)
+    pad_t = (-t) % gsize
+    xf = x.reshape(t, d)
+    if pad_t:
+        xf = F.pad(xf, (0, 0, 0, pad_t))
+    g = (t + pad_t) // gsize
+    xg = xf.reshape(g, gsize, d)
+
+    probs, top_w, top_i = route(params, xg, cfg, compute_dtype)
+
+    # --- load-balancing auxiliary loss (Switch-style): the fraction of
+    #     tokens whose first choice is each expert (exact counts) ---
+    frac_tokens = _counts(top_i[..., 0].reshape(1, -1), e)[0].float() \
+        / (g * gsize)
+    mean_probs = probs.reshape(-1, e).mean(dim=0)
+    aux = e * torch.sum(frac_tokens * mean_probs)
+
+    # --- per-group slot assignment: the position of each (token, choice)
+    #     within its expert over the group's flattened (t*k) stream, i.e.
+    #     the reference's one-hot cumsum, as a rank: a stable sort by
+    #     expert keeps each expert's choices in stream order ---
+    cap = expert_capacity(gsize, cfg)
+    flat_e = top_i.reshape(g, gsize * k)
+    counts = _counts(flat_e, e)                               # [g, E]
+    expert_load = counts.sum(dim=0).to(torch.int32)
+    sorted_e, order = torch.sort(flat_e, dim=1, stable=True)
+    first = torch.cumsum(counts, dim=1) - counts   # each expert's first rank
+    rank = torch.arange(gsize * k, device=x.device) - first.gather(1,
+                                                                  sorted_e)
+    slot = torch.empty_like(flat_e).scatter_(1, order, rank)
+    in_cap = slot < cap
+    token_ids = torch.arange(gsize, device=x.device).repeat_interleave(k)
+    token_ids = token_ids.expand(g, gsize * k)
+
+    # --- virtual-expert expansion: every (token, choice) goes to all sp
+    #     slices of its chosen expert, with the same slot ---
+    sp = cfg.moe_ep_split
+    kk = k * sp
+    e_v = e * sp
+    if sp > 1:
+        flat_e = (flat_e[..., None] * sp
+                  + torch.arange(sp, device=x.device)).reshape(g, gsize * kk)
+        slot = slot.repeat_interleave(sp, dim=-1)
+        in_cap = in_cap.repeat_interleave(sp, dim=-1)
+        token_ids = token_ids.repeat_interleave(sp, dim=-1)
+
+    # --- dispatch: token-id table [g, Ev*cap] (empty slots point at a zero
+    #     row), then a batched gather ---
+    buf_pos = torch.where(in_cap, flat_e * cap + slot, e_v * cap)
+    table = torch.full((g, e_v * cap + 1), gsize, dtype=torch.long,
+                       device=x.device)
+    table.scatter_(1, buf_pos, token_ids)          # dropped -> last column
+    table = table[:, :e_v * cap]
+    rows = torch.arange(g, device=x.device)[:, None]
+    xg_pad = F.pad(xg, (0, 0, 0, 1))                          # zero row
+    buf = xg_pad[rows, table]                                 # [g, Ev*c, d]
+
+    # --- expert FFN, batched over experts in the compute dtype ---
+    with torch.profiler.record_function("moe_experts"):
+        wi = cast_param(params["w_in"], compute_dtype)        # [Ev,d,2,f]
+        wd = cast_param(params["w_down"], compute_dtype)      # [Ev,f,d]
+        ff = wi.shape[-1]
+        be = buf.reshape(g, e_v, cap, d).transpose(0, 1).reshape(
+            e_v, g * cap, d)
+        gu = torch.matmul(be, wi.reshape(e_v, d, 2 * ff)).reshape(
+            e_v, g * cap, 2, ff)
+        h = F.silu(gu[..., 0, :]) * gu[..., 1, :]
+        del gu
+        out_e = torch.matmul(h, wd)                           # [Ev,g*c,d]
+    out_flat = out_e.reshape(e_v, g, cap, d).transpose(0, 1).reshape(
+        g, e_v * cap, d)
+
+    # --- combine: batched gather back to token order, weight, sum over
+    #     the k choices (and the sp slices, whose partial outputs add) ---
+    out_pad = F.pad(out_flat, (0, 0, 0, 1))                   # zero row
+    gathered = out_pad[rows, buf_pos]                         # [g, t*kk, d]
+    w_comb = top_w if sp == 1 else top_w.repeat_interleave(sp, dim=-1)
+    gathered = gathered.reshape(g, gsize, kk, d) \
+        * w_comb[..., None].to(compute_dtype)
+    yg = gathered.sum(dim=2)                                  # [g, t, d]
+
+    y = yg.reshape(g * gsize, d)
+    if pad_t:
+        y = y[:t]
+    return y.reshape(b, s, d), aux, expert_load

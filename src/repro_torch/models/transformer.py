@@ -1,13 +1,14 @@
-"""Decoder-only LM stack for the dense, SSM and hybrid families: the port
-of ``repro.models.transformer``.
+"""Decoder-only LM stack for the dense, MoE, SSM and hybrid families: the
+port of ``repro.models.transformer``.
 
 Parameters keep the reference's nesting (``{"embed", "slots": {"slot{i}":
 ...}, "final_norm", ["lm_head"]}``), with each period-slot's parameters
 stacked along a leading periods axis; where the reference scans over that
-axis, the port runs a Python loop. A slot's mixer is attention or mamba, so
-a period may mix both (jamba's 7 mamba + 1 attention). A ``moe`` FFN and the
-encoder-decoder family raise ``NotImplementedError``: they come with a later
-slice of the port.
+axis, the port runs a Python loop. A slot's mixer is attention or mamba and
+its FFN an MLP or an MoE layer (``models/moe.py``), so a period may mix them
+(jamba's 7 mamba + 1 attention, MoE on odd slots). The encoder-decoder
+family is ``models/encdec.py``; this module raises ``NotImplementedError``
+for it, as the reference's transformer does not build it either.
 
 Entry points: ``forward`` (full sequence), ``prefill`` (build the cache:
 a ring KV cache per attention slot, the (conv, ssm) state per mamba slot,
@@ -19,25 +20,19 @@ from __future__ import annotations
 import torch
 
 from repro_torch.models import layers as L
+from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.kvcache import init_cache
 
-MOE_ITEM = "ROADMAP Queue 1 item 3 (MoE, encoder-decoder and training)"
-
 
 def check_ported(cfg: ModelConfig) -> None:
-    """Raise for a family whose layers the port does not have yet: MoE
-    FFNs and encoder-decoder models (attention and mamba mixers are
-    ported)."""
-    for slot in cfg.block_pattern():
-        if slot.ffn == "moe":
-            raise NotImplementedError(
-                f"{cfg.name}: MoE layers are not ported yet; see {MOE_ITEM}")
+    """Raise for an encoder-decoder config: its models are built and run by
+    ``models/encdec.py``, not by this decoder-only stack."""
     if cfg.is_encoder_decoder:
         raise NotImplementedError(
-            f"{cfg.name}: encoder-decoder models are not ported yet; see "
-            f"{MOE_ITEM}")
+            f"{cfg.name} is an encoder-decoder model: build and run it with "
+            "repro_torch.models.encdec (models/encdec.py)")
 
 
 # --------------------------------------------------------------------------- #
@@ -53,26 +48,25 @@ def _init_slot(gen, cfg: ModelConfig, slot, dtype):
     if slot.ffn is not None:
         p["norm2"] = L.init_norm(cfg.d_model, cfg.norm_type, dtype,
                                  gen.device)
-        p["mlp"] = L.init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.mlp_type, dtype)
+        if slot.ffn == "moe":
+            p["moe"] = moe_lib.init_moe(gen, cfg, dtype)
+        else:
+            p["mlp"] = L.init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.mlp_type,
+                                  dtype)
     return p
-
-
-def _stack(trees):
-    return {k: _stack([t[k] for t in trees]) if isinstance(v, dict)
-            else torch.stack([t[k] for t in trees])
-            for k, v in trees[0].items()}
 
 
 def init_params(gen: torch.Generator, cfg: ModelConfig):
     """Parameter dict drawn from ``gen`` on its device; per-slot params
-    stacked along a leading periods axis."""
+    stacked along a leading periods axis (``layers.init_stacked``: one
+    period's draw at a time, never a second copy of a stacked tensor)."""
     check_ported(cfg)
     dtype = L.torch_dtype(cfg.param_dtype)
     n = cfg.num_periods()
     params = {
         "embed": L.init_embedding(gen, cfg.vocab_size, cfg.d_model, dtype),
-        "slots": {f"slot{i}": _stack([_init_slot(gen, cfg, s, dtype)
-                                      for _ in range(n)])
+        "slots": {f"slot{i}": L.init_stacked(
+                      lambda s=s: _init_slot(gen, cfg, s, dtype), n)
                   for i, s in enumerate(cfg.block_pattern())},
         "final_norm": L.init_norm(cfg.d_model, cfg.norm_type, dtype,
                                   gen.device),
@@ -96,9 +90,10 @@ def _period(tree, p: int):
 def _apply_slot(slot_params, x, cfg: ModelConfig, slot, positions, cdtype,
                 cache=None, pos=None):
     """One layer: pre-norm mixer (attention or mamba) + residual, then
-    pre-norm FFN + residual. Returns (x, new_cache): an attention slot's
-    (k, v) (of this segment without ``cache``; the ring, updated in place,
-    with it), a mamba slot's new {"conv", "ssm"} state."""
+    pre-norm FFN (MLP or MoE) + residual. Returns (x, new_cache, aux): an
+    attention slot's (k, v) (of this segment without ``cache``; the ring,
+    updated in place, with it), a mamba slot's new {"conv", "ssm"} state;
+    the MoE layer's auxiliary loss, or None without one."""
     h = L.apply_norm(x, slot_params["norm1"], cfg.norm_type, cfg.norm_eps)
     if slot.mixer == "attn":
         kv = None if cache is None else (cache["k"], cache["v"])
@@ -109,11 +104,17 @@ def _apply_slot(slot_params, x, cfg: ModelConfig, slot, positions, cdtype,
         out, new_cache = ssm_lib.mamba_forward(slot_params["mamba"], h, cfg,
                                                cdtype, state=cache)
     x = x + out
+    aux = None
     if slot.ffn is not None:
         h2 = L.apply_norm(x, slot_params["norm2"], cfg.norm_type,
                           cfg.norm_eps)
-        x = x + L.mlp_block(slot_params["mlp"], h2, cfg.mlp_type, cdtype)
-    return x, new_cache
+        if slot.ffn == "moe":
+            out2, aux, _ = moe_lib.moe_block(slot_params["moe"], h2, cfg,
+                                             cdtype)
+        else:
+            out2 = L.mlp_block(slot_params["mlp"], h2, cfg.mlp_type, cdtype)
+        x = x + out2
+    return x, new_cache, aux
 
 
 def _default_positions(cfg: ModelConfig, batch, seq, device, offset=0):
@@ -142,8 +143,8 @@ def _head(params, x, cfg: ModelConfig, cdtype):
 
 def forward(params, tokens, cfg: ModelConfig, positions=None,
             input_embeds=None, mode: str = "eval"):
-    """Full-sequence forward. Returns (logits [B,S,V], aux_loss); without
-    MoE layers there is no auxiliary loss, so it is a float32 zero.
+    """Full-sequence forward. Returns (logits [B,S,V], aux_loss): the sum
+    of the MoE layers' auxiliary losses, a float32 zero without them.
     ``mode`` is kept for the reference's signature: rematerialisation is a
     training matter and the port runs forward only."""
     check_ported(cfg)
@@ -153,13 +154,16 @@ def forward(params, tokens, cfg: ModelConfig, positions=None,
     if positions is None:
         positions = _default_positions(cfg, b, s, x.device)
     pattern = cfg.block_pattern()
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for p in range(cfg.num_periods()):
         sliced = _period(params["slots"], p)
         for i, slot in enumerate(pattern):
-            x, _ = _apply_slot(sliced[f"slot{i}"], x, cfg, slot, positions,
-                               cdtype)
+            x, _, a = _apply_slot(sliced[f"slot{i}"], x, cfg, slot,
+                                  positions, cdtype)
+            if a is not None:
+                aux = aux + a
     logits = _head(params, x, cfg, cdtype)
-    return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+    return logits, aux
 
 
 # --------------------------------------------------------------------------- #
@@ -194,8 +198,8 @@ def prefill(params, tokens, cfg: ModelConfig, cache_width: int,
     for p in range(cfg.num_periods()):
         sliced = _period(params["slots"], p)
         for i, slot in enumerate(pattern):
-            x, new_cache = _apply_slot(sliced[f"slot{i}"], x, cfg, slot,
-                                       positions, cdtype)
+            x, new_cache, _ = _apply_slot(sliced[f"slot{i}"], x, cfg, slot,
+                                          positions, cdtype)
             entry = cache[f"slot{i}"]
             if slot.mixer == "attn":
                 k, v = new_cache
@@ -229,9 +233,9 @@ def decode_step(params, token, pos: int, cache, cfg: ModelConfig,
         sliced = _period(params["slots"], p)
         for i, slot in enumerate(pattern):
             entry = cache[f"slot{i}"]
-            x, new_cache = _apply_slot(sliced[f"slot{i}"], x, cfg, slot,
-                                       positions, cdtype,
-                                       cache=_period(entry, p), pos=pos)
+            x, new_cache, _ = _apply_slot(sliced[f"slot{i}"], x, cfg, slot,
+                                          positions, cdtype,
+                                          cache=_period(entry, p), pos=pos)
             if slot.mixer == "mamba":
                 entry["conv"][p] = new_cache["conv"]
                 entry["ssm"][p] = new_cache["ssm"]

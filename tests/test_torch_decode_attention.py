@@ -324,6 +324,90 @@ def test_repeated_calls_and_graph_replays_are_bitwise_equal(cuda, q_dtype,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("q_dtype,kv_dtype,w", [("bfloat16", "bfloat16", 4096),
+                                                ("float32", "float32", 1000)])
+def test_calls_on_two_streams_keep_their_own_tickets(cuda, q_dtype, kv_dtype,
+                                                     w):
+    """Two streams, each running the kernel with splits on its own inputs,
+    many calls issued in turns without waiting: every result equals the
+    plain version. With one set of tickets for the device the splits of
+    the two streams' calls would draw each other's tickets, and a combine
+    would run early or not at all."""
+    b, h, hkv, d = 1, 24, 8, 128
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    kv_bytes = 2 if kv_dtype == "bfloat16" else 4
+    assert da.plan(b, hkv, w, d, h // hkv, kv_bytes, sms)[2] >= 2
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    inputs = []
+    for i in range(2):
+        q, k, v = make_inputs(100 + i, b, h, hkv, w, d)
+        inputs.append(tuple(t.to(cuda) for t in as_torch(q, k, v, q_dtype,
+                                                         kv_dtype)))
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream())
+    outs = [[], []]
+    for it in range(40):
+        for i, s in enumerate(streams):
+            with torch.cuda.stream(s):
+                outs[i].append(da.decode_attention(*inputs[i], 3 * w + it))
+    torch.cuda.synchronize()
+    tol = TOL[q_dtype]
+    for i in range(2):
+        for it, got in enumerate(outs[i]):
+            want = decode_attention_ref(*inputs[i], 3 * w + it)
+            torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                                       atol=tol)
+
+
+@pytest.mark.cuda
+def test_two_graphs_keep_their_own_tickets(cuda):
+    """Two graphs captured on the default capture stream, each holding
+    calls with splits: replayed second first, in turns, and then both at
+    once on two streams, every result equals the plain version. Graphs
+    that shared one set of counters would find them unzeroed at a first
+    replay, or draw each other's tickets when replayed together."""
+    b, h, hkv, d, w = 1, 24, 8, 128, 4096
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert da.plan(b, hkv, w, d, h // hkv, 2, sms)[2] >= 2
+    inputs, graphs, outs = [], [], []
+    for i in range(2):
+        q, k, v = make_inputs(200 + i, b, h, hkv, w, d)
+        inputs.append(tuple(t.to(cuda) for t in as_torch(q, k, v, "bfloat16",
+                                                         "bfloat16")))
+    da.decode_attention(*inputs[0], 3 * w)       # build and load, eagerly
+    for i in range(2):
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            outs.append([da.decode_attention(*inputs[i], 3 * w + j)
+                         for j in range(4)])
+        graphs.append(graph)
+    want = [[decode_attention_ref(*inputs[i], 3 * w + j) for j in range(4)]
+            for i in range(2)]
+
+    def check(graphs_run):
+        torch.cuda.synchronize()
+        for i in graphs_run:
+            for got, ref in zip(outs[i], want[i]):
+                torch.testing.assert_close(got.float(), ref.float(),
+                                           rtol=TOL["bfloat16"],
+                                           atol=TOL["bfloat16"])
+
+    for i in (1, 0, 1, 0):
+        graphs[i].replay()
+        check((i,))
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream())
+    for _ in range(20):
+        for graph, s in zip(graphs, streams):
+            with torch.cuda.stream(s):
+                graph.replay()
+    for s in streams:
+        torch.cuda.current_stream().wait_stream(s)
+    check((0, 1))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("pos", [-1, -5])
 @pytest.mark.parametrize("b,h,hkv,w,d,kv_dtype", [
     (1, 4, 2, 64, 64, "float32"),         # one tile, one split

@@ -1,8 +1,8 @@
 """The port's LM-expert router against the JAX package's
 ``examples/lm_coe_router.py``, at the example's smoke width on the CPU, with
 the experts of the example (StarCoder2-3B's smoke config) and with
-Falcon-Mamba-7B's smoke config swapped into the example's ``cfg`` as
-``--arch falcon_mamba_7b`` swaps it into the port's.
+Falcon-Mamba-7B's or Moonlight-16B-A3B's smoke config swapped into the
+example's ``cfg`` as ``--arch`` swaps it into the port's.
 
 The seven experts carry the example's own weights (``init_params`` with
 PRNG keys 0-5 and 99), converted with ``params_from_reference``; the
@@ -13,7 +13,11 @@ expert's on the request, the safety expert's on its follow-up. The next
 tokens themselves must be equal for every prompt. Both packages compute in
 float32 here: under the example's bfloat16 compute a few prompts in 90
 have their top two logits within one bf16 rounding, and the two
-frameworks' matmuls round such a tie different ways.
+frameworks' matmuls round such a tie different ways. With Moonlight's MoE
+experts both configs take a capacity factor that makes routing dropless
+(experts / top-k): at the published 1.25 a served token depends on the
+other prompts of its padded batch, while the example's ``lm_apply`` runs
+all 90 prompts in one group; the CLI serves them at 1.25.
 """
 import dataclasses
 import importlib.util
@@ -34,11 +38,11 @@ EXAMPLE = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "examples", "lm_coe_router.py")
 
 
-def load_example(arch=None):
+def load_example(arch=None, **changes):
     """A fresh copy of the example module (cfg and lm_apply defined, main()
     unrun), computing in float32, with ``arch``'s smoke config swapped in
-    for its experts' when given. lm_apply reads the module's cfg when it is
-    first traced."""
+    for its experts' when given, and ``changes``. lm_apply reads the
+    module's cfg when it is first traced."""
     spec = importlib.util.spec_from_file_location("lm_coe_router_example",
                                                   EXAMPLE)
     mod = importlib.util.module_from_spec(spec)
@@ -48,7 +52,8 @@ def load_example(arch=None):
 
         mod.cfg = dataclasses.replace(smoke_config(get_config(arch)),
                                       remat=False)
-    mod.cfg = dataclasses.replace(mod.cfg, compute_dtype="float32")
+    mod.cfg = dataclasses.replace(mod.cfg, compute_dtype="float32",
+                                  **changes)
     return mod
 
 
@@ -110,11 +115,38 @@ def test_falcon_mamba_config():
         router.lm_config("smoke", arch="mixtral_8x22b")
 
 
-def check_router(example, weights, arch):
+def test_moonshot_router_serves_every_prompt_like_the_example():
+    """``--arch moonshot_v1_16b_a3b``: every expert forward runs flash
+    attention (on the CPU its plain version) and the MoE layer, dropless
+    here (see the module's docstring); the tokens are those of the example
+    with the same config swapped in."""
+    arch = "moonshot_v1_16b_a3b"
+    dropless = dict(moe_capacity_factor=2.0)     # 4 experts, top-2
+    example = load_example(arch, **dropless)
+    assert example.cfg.family == "moe"
+    check_router(example, example_weights(example), arch, **dropless)
+
+
+def test_moonshot_config():
+    cfg = router.lm_config("smoke", arch="moonshot_v1_16b_a3b")
+    assert cfg.attn_impl == "pallas" and cfg.param_dtype == "float32"
+    assert dataclasses.asdict(dataclasses.replace(
+        cfg, attn_impl="xla", compute_dtype="float32")) \
+        == dataclasses.asdict(load_example("moonshot_v1_16b_a3b").cfg)
+    full = router.lm_config("full", layers=2, arch="moonshot_v1_16b_a3b")
+    assert (full.d_model, full.num_heads, full.num_kv_heads, full.head_dim,
+            full.moe_num_experts, full.moe_top_k, full.moe_d_ff,
+            full.moe_capacity_factor, full.vocab_size, full.num_layers,
+            full.param_dtype) == \
+        (2048, 16, 16, 128, 64, 6, 1408, 1.25, 163840, 2, "bfloat16")
+    assert full.param_count() == 1_812_211_712      # 3.62 GB in bf16
+
+
+def check_router(example, weights, arch, **changes):
     """Both policies serve all 90 prompts; every request's result and its
     safety follow-up's equal the example's lm_apply chain on its tokens."""
     cfg = dataclasses.replace(router.lm_config("smoke", arch=arch),
-                              compute_dtype="float32")
+                              compute_dtype="float32", **changes)
     params = {eid: params_from_reference(jax.tree.map(np.asarray, p))
               for eid, p in weights.items()}
     rng = np.random.RandomState(0)
@@ -178,5 +210,16 @@ def test_cli_serves_falcon_mamba_experts(capsys):
                           "falcon_mamba_7b", "--layers", "1"])
     assert report["arch"] == "falcon_mamba_7b"
     assert report["layers"] == 1 and report["layers_cut"]
+    assert all(p["completed"] == 12 for p in report["policies"])
+    assert capsys.readouterr().out.count("makespan_s") == 2
+
+
+def test_cli_serves_moonshot_experts(capsys):
+    """Moonlight's smoke experts at the published capacity factor 1.25:
+    every prompt is served under both policies."""
+    report = router.main(["--device", "cpu", "--requests", "12", "--arch",
+                          "moonshot_v1_16b_a3b"])
+    assert report["arch"] == "moonshot_v1_16b_a3b"
+    assert report["layers"] == 2 and not report["layers_cut"]
     assert all(p["completed"] == 12 for p in report["policies"])
     assert capsys.readouterr().out.count("makespan_s") == 2

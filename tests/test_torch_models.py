@@ -31,8 +31,9 @@ F32 = dict(rtol=1e-5, atol=1e-5)
 BF16 = dict(rtol=5e-2, atol=5e-2)
 DENSE = ["starcoder2_3b", "phi4_mini_3_8b", "minitron_4b", "qwen2_vl_2b"]
 SSM = ["falcon_mamba_7b", "jamba_v0_1_52b"]
-# jamba's hybrid period without its MoE layers, which the port does not
-# have yet
+# jamba's hybrid period without its MoE layers: the SSM and hybrid files
+# hold its mamba and attention slots on their own (with its MoE layers it
+# is held in test_torch_moe_models.py)
 ARCH_CHANGES = {"jamba_v0_1_52b": dict(moe_num_experts=0)}
 
 _REF = {}
