@@ -20,7 +20,10 @@ Phases, each of which ends the run with a nonzero exit when it fails:
 4. serving with decode: ``repro_torch.launch.serve --mode real --decode``
    on the card, every decode step through the decode kernel;
 5. the same server with phi4-mini's ring geometry;
-6. ``--mode real`` and ``--mode online --engine real`` without decode;
+6. ``--mode real`` and ``--mode online --engine real`` without decode,
+   and ``repro_torch.launch.serve_real_experts`` (the twin of the JAX
+   package's serving example: 150 requests under COSERVE and
+   SAMBA_PARALLEL, every one completed);
 7. flash kernel vs plain: ``flash_attention`` against
    ``flash_attention_ref`` at starcoder2-3b's, phi4-mini's and Moonlight's
    prefill, a cached prefix, a sliding window, a ragged fp32 case, a
@@ -82,7 +85,22 @@ Phases, each of which ends the run with a nonzero exit when it fails:
    kernels' path against the plain-torch path and prefill + decode steps
    against the teacher-forced decoder; (b) all 24 + 24 layers in bf16,
    B 1, 1500 frames, a 64-token prompt and 32 decode steps: encode,
-   prefill and decode timed and profiled by family.
+   prefill and decode timed and profiled by family;
+17. training (``repro_torch.training``, the plain torch paths: the kernels
+   have no backward): (a) one ``make_train_step`` step of StarCoder2-3B at
+   full width, 2 layers, float32, B 2 x S 64, on the card (TF32 off) and
+   on the host from the same weights, loss, grad norm and every gradient
+   leaf compared; (b) StarCoder2-3B whole (30 layers, float32 params, bf16
+   compute, remat) for 6 steps at B 1 x S 4096 on one repeated batch: the
+   state's bytes, peak memory, wall, device and optimizer ms a step,
+   tokens/s and 6NT utilisation, the loss falling; (c) Whisper-medium
+   whole, B 2, 1500 frames, 448 tokens, 4 steps; (d) Moonlight-16B-A3B at
+   full width cut to 2 layers, B 1 x S 4096, 3 steps, aux loss positive;
+   (e) ``repro_torch.launch.train_100m`` (300 steps, checkpoints every
+   50), ``launch.train --resume`` to step 360 from its checkpoint, and 60
+   steps with int8 error-feedback gradients, each with its tokens/s;
+   (f) ``flash_attention_op`` with an input that requires grad, and a
+   train step with ``attn_impl="pallas"``, both refused.
 
 The last two lines of output are ``{"kernels": [...]}`` and
 ``{"ok": true, "device": {...}}``.
@@ -1745,6 +1763,316 @@ def whisper_phases(fa, da):
     return summary_a, summary_b
 
 
+# --------------------------------------------------------------------------- #
+# phase 17: training on the card
+# --------------------------------------------------------------------------- #
+
+# 17a: one float32 step on the card (TF32 off) against the same step on the
+# host, by the port's own code. The gradients' sums run in other orders
+# over reductions of up to 12288 terms (d_ff) and 128 tokens, so each
+# gradient leaf is held to 2e-4 of its largest |g| (``mu`` after one step
+# is 0.1 x the clipped gradient, ``nu`` 0.05 x its square: twice the
+# relative error), the loss to 2e-5 and the grad norm to 2e-4 relative; the
+# parameters move by lr_0 (3e-6) times mhat / (sqrt(vhat) + eps), +-1 where
+# |g| >> eps, and are held within 2 lr_0 (a near-zero gradient's sign).
+TRAIN_PARITY_TOL = {"loss": 2e-5, "grad_norm": 2e-4, "mu": 2e-4, "nu": 4e-4}
+
+
+def tree_to(tree, device):
+    from repro_torch.training.tree import tree_map
+
+    return tree_map(lambda t: t.detach().to(device, copy=True), tree)
+
+
+def state_bytes(tree) -> int:
+    from repro_torch.training.tree import leaves
+
+    return sum(t.numel() * t.element_size() for t in leaves(tree))
+
+
+def train_steps(step_fn, params, opt, batch, steps: int, tokens: int,
+                n_params: int) -> tuple:
+    """``steps`` steps of ``step_fn`` on one repeated batch, each timed on
+    the host clock (ending in a synchronize) and by CUDA events, with the
+    optimizer's share by CUDA events around ``adamw_update``; the loss (and
+    aux loss) of each step, the peak memory from the first step on. Fails
+    unless the loss is finite and falls. Returns (summary, params, opt
+    state)."""
+    from repro_torch.training import train_loop
+
+    opt_events = []
+
+    def timed_update(original):
+        def update(*args, **kw):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            out = original(*args, **kw)
+            b.record()
+            opt_events.append((a, b))
+            return out
+        return update
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rows = []
+    with wrapped(train_loop, "adamw_update", timed_update):
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            start.record()
+            params, opt, m = step_fn(params, opt, batch)
+            end.record()
+            end.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+            a, b = opt_events[-1]
+            rows.append({"wall_ms": wall,
+                         "device_ms": start.elapsed_time(end),
+                         "optimizer_ms": a.elapsed_time(b),
+                         **{k: float(v) for k, v in m.items()}})
+    losses = [r["loss"] for r in rows]
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"non-finite loss: {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"the loss did not fall: {losses}")
+    steady = rows[1:]
+    wall = sorted(r["wall_ms"] for r in steady)[len(steady) // 2]
+    return {"steps": rows, "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "median_wall_ms": wall,
+            "median_device_ms": sorted(r["device_ms"] for r in steady)[
+                len(steady) // 2],
+            "tokens_per_step": tokens, "tokens_per_s": tokens / wall * 1e3,
+            "utilisation_6NT": 6 * n_params * tokens / (wall / 1e3)
+                               / BF16_OPS_PER_S}, params, opt
+
+
+def parity_train_step(base) -> dict:
+    """17a: StarCoder2-3B at full width, 2 layers, float32 compute, remat
+    on, B 2 x S 64: one step on the card and one on the host from the same
+    parameters and batch."""
+    import dataclasses
+
+    from repro_torch.data import make_batch_for
+    from repro_torch.models import transformer
+    from repro_torch.training import adamw_init
+    from repro_torch.training.optimizer import AdamWConfig
+    from repro_torch.training.train_loop import make_train_step
+    from repro_torch.training.tree import leaves_with_names
+
+    cfg = dataclasses.replace(base, num_layers=2, compute_dtype="float32")
+    dev = torch.device("cuda")
+    params = transformer.init_params(
+        torch.Generator(device=dev).manual_seed(20), cfg)
+    host = tree_to(params, "cpu")
+    batch = make_batch_for(cfg, 2, 64, seed=20)
+    step = make_train_step(cfg)
+    out = {}
+    torch.cuda.reset_peak_memory_stats()
+    for key, where, p in (("card", dev, params), ("host", "cpu", host)):
+        data = {k: torch.from_numpy(v).to(where) for k, v in batch.items()}
+        p, o, m = step(p, adamw_init(p), data)
+        out[key] = (tree_to({"params": p, "opt_state": o}, "cpu"),
+                    {k: float(v) for k, v in m.items()})
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    tol = TRAIN_PARITY_TOL
+    lr0 = AdamWConfig().lr / AdamWConfig().warmup_steps
+    summary = {"phase": "17a parity, 2 layers fp32, card against host",
+               "allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+               "tol": tol, "params_atol": 2 * lr0, "peak_gb": peak_gb,
+               "metrics_card": out["card"][1], "metrics_host": out["host"][1]}
+    for k in ("loss", "grad_norm"):
+        a, b = out["card"][1][k], out["host"][1][k]
+        summary[f"{k}_rel_err"] = abs(a - b) / abs(b)
+        if abs(a - b) > tol[k] * abs(b):
+            raise AssertionError(f"17a {k}: card {a} against host {b}")
+    worst = {"mu": 0.0, "nu": 0.0, "params_abs": 0.0}
+    for (name, a), (_, b) in zip(leaves_with_names(out["card"][0]),
+                                 leaves_with_names(out["host"][0])):
+        if ".step" in name:
+            continue
+        err = (a.float() - b.float()).abs().max().item()
+        if name.startswith("['params']"):
+            worst["params_abs"] = max(worst["params_abs"], err)
+            if err > 2 * lr0:
+                raise AssertionError(f"17a {name}: |err| {err} > {2 * lr0}")
+            continue
+        kind = "mu" if ".mu" in name else "nu"
+        rel = err / max(b.abs().max().item(), 1e-30)
+        worst[kind] = max(worst[kind], rel)
+        if rel > tol[kind]:
+            raise AssertionError(f"17a {name}: |err| {rel} of the leaf's "
+                                 f"largest, > {tol[kind]}")
+    summary["max_err"] = worst
+    print(json.dumps(summary), flush=True)
+    del params, host, out
+    return summary
+
+
+def run_driver(fn, argv) -> tuple:
+    """A launch driver's ``main(argv)`` with its output captured and then
+    echoed: (its return value, the output, {wall seconds, peak device
+    memory, the driver's last tokens/s})."""
+    import io
+    import re
+
+    buf = io.StringIO()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        out = fn(argv)
+    log = buf.getvalue()
+    stats = {"wall_s": time.perf_counter() - t0,
+             "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+             "tok_s": float(re.findall(r"([\d,]+) tok/s",
+                                       log)[-1].replace(",", ""))}
+    print(log, end="", flush=True)
+    return out, log, stats
+
+
+def training_phases() -> dict:
+    """Phase 17: the port's training path on the card; returns the
+    summaries by sub-phase."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLMDataset, make_batch_for
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train, train_100m
+    from repro_torch.training.train_loop import (init_train_state,
+                                                 make_train_step,
+                                                 make_whisper_train_step)
+    from repro_torch.training.tree import leaves
+
+    dev = torch.device("cuda")
+    base = dataclasses.replace(get_config("starcoder2_3b"), remat=True,
+                               attn_impl="xla")
+    out = {}
+    card = card_line()
+
+    phase("17a one train step, card against host, float32")
+    out["17a"] = parity_train_step(base)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    def whole(label, cfg, step_fn, batch, steps, tokens, seed,
+              profile=False):
+        params, opt = init_train_state(
+            torch.Generator(device=dev).manual_seed(seed), cfg)
+        n_params = sum(t.numel() for t in leaves(params))
+        # a gradient leaf has its parameter's shape and dtype
+        sizes = {"params_gb": state_bytes(params) / 1e9,
+                 "grads_gb": state_bytes(params) / 1e9,
+                 "mu_gb": state_bytes(opt.mu) / 1e9,
+                 "nu_gb": state_bytes(opt.nu) / 1e9}
+        summary, params, opt = train_steps(step_fn, params, opt, batch, steps,
+                                           tokens, n_params)
+        summary = {"phase": label, "card": card, "params": n_params,
+                   **sizes, **summary}
+        if profile:             # one more step, by kernel family
+            split, other = family_split(
+                lambda: step_fn(params, opt, batch), (), n_other=8)
+            summary["step_device_ms_by_family"] = split
+            summary["step_other_top_ms"] = other
+        print(json.dumps(summary), flush=True)
+        del params, opt
+        gc.collect()
+        torch.cuda.empty_cache()
+        return summary
+
+    phase("17b StarCoder2-3B whole, 30 layers, B 1 x S 4096")
+    cfg = base
+    ds = SyntheticLMDataset(vocab_size=cfg.vocab_size, seq_len=4096,
+                            global_batch=1, seed=0, branching=2)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in ds.batch(0).items()}
+    out["17b"] = whole("17b starcoder2-3b, 30 layers, fp32 params, bf16 "
+                       "compute, remat", cfg, make_train_step(cfg), batch, 6,
+                       4096, 21, profile=True)
+
+    phase("17c Whisper-medium whole, 24 + 24 layers, B 2, 1500 frames, "
+          "448 tokens")
+    cfg = dataclasses.replace(get_config("whisper_medium"), remat=True)
+    batch = {k: torch.from_numpy(v).to(dev)
+             for k, v in make_batch_for(cfg, 2, 448, seed=22).items()}
+    out["17c"] = whole("17c whisper-medium, 24 + 24 layers, fp32 params, "
+                       "bf16 compute, remat", cfg,
+                       make_whisper_train_step(cfg), batch, 4, 2 * 448, 22)
+
+    phase("17d Moonlight-16B-A3B at full width, 2 layers, B 1 x S 4096")
+    cfg = dataclasses.replace(get_config("moonshot_v1_16b_a3b"),
+                              num_layers=2, remat=True)
+    ds = SyntheticLMDataset(vocab_size=cfg.vocab_size, seq_len=4096,
+                            global_batch=1, seed=0, branching=2)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in ds.batch(0).items()}
+    out["17d"] = whole("17d moonlight-16b-a3b, 2 layers, fp32 params, bf16 "
+                       "compute, remat", cfg, make_train_step(cfg), batch, 3,
+                       4096, 23)
+    aux = [r["aux_loss"] for r in out["17d"]["steps"]]
+    if not all(math.isfinite(a) and a > 0 for a in aux):
+        raise AssertionError(f"17d aux loss not positive and finite: {aux}")
+
+    phase("17e the training driver: 100m preset, resume, int8-EF grads")
+    root = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        ckpt = os.path.join(root, "100m")
+        (_, ok), log, stats = run_driver(train_100m.main, [
+            "--ckpt-dir", ckpt, "--device", "cuda"])
+        if not ok or "OK: loss decreased" not in log:
+            raise AssertionError("train_100m: the loss did not decrease")
+        runs = {"train_100m": {"steps": 300, **stats}}
+        common = ["--preset", "100m", "--batch", "8", "--seq", "256",
+                  "--ckpt-every", "50", "--log-every", "10",
+                  "--device", "cuda"]
+        history, log, stats = run_driver(train.main, common + [
+            "--ckpt-dir", ckpt, "--steps", "360", "--resume"])
+        if "[train] resumed from step 300" not in log or \
+                history[0]["step"] != 301:
+            raise AssertionError("the resumed run did not start at step 300")
+        runs["resume_to_360"] = {"steps": 60, **stats}
+        history, log, stats = run_driver(train.main, common + [
+            "--ckpt-dir", os.path.join(root, "ef"), "--steps", "60",
+            "--compress"])
+        if not history[-1]["loss"] < history[0]["loss"]:
+            raise AssertionError("the int8-EF run's loss did not fall")
+        runs["compress_60"] = {"steps": 60, **stats,
+                               "loss": [history[0]["loss"],
+                                        history[-1]["loss"]]}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out["17e"] = {"phase": "17e the training driver", "card": card,
+                  "allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+                  **runs}
+    print(json.dumps(out["17e"]), flush=True)
+
+    phase("17f the kernels refuse a differentiable call")
+    q = torch.randn(1, 24, 64, 128, device=dev, requires_grad=True)
+    kv = torch.randn(1, 2, 64, 128, device=dev)
+    refused = []
+    try:
+        ops.flash_attention_op(q, kv, kv)
+    except RuntimeError as e:
+        refused.append(str(e))
+    cfg = dataclasses.replace(base, num_layers=2, attn_impl="pallas")
+    params, opt = init_train_state(
+        torch.Generator(device=dev).manual_seed(24), cfg)
+    batch = {k: torch.from_numpy(v).to(dev)
+             for k, v in make_batch_for(cfg, 1, 64, seed=24).items()}
+    try:
+        make_train_step(cfg)(params, opt, batch)
+    except RuntimeError as e:
+        refused.append(str(e))
+    del params, opt
+    torch.cuda.empty_cache()
+    out["17f"] = {"phase": "17f refusals", "refused": refused}
+    print(json.dumps(out["17f"]), flush=True)
+    if len(refused) != 2 or not all("has no backward" in r
+                                    for r in refused):
+        raise AssertionError(f"17f: {len(refused)} of 2 calls refused")
+    return out
+
+
 def mem_available_gb() -> float:
     """The host's MemAvailable (``/proc/meminfo``), in GB."""
     with open("/proc/meminfo") as f:
@@ -1782,7 +2110,7 @@ def main() -> int:
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import mamba_scan as ms
     from repro_torch.kernels import ref
-    from repro_torch.launch import serve
+    from repro_torch.launch import serve, serve_real_experts
 
     phase("2 build")
     build_all()
@@ -1800,7 +2128,7 @@ def main() -> int:
     serve_decode(serve, da, ["--mode", "real", "--decode", "--requests",
                              "40", "--quiet"], ring=PHI4_RING)
 
-    phase("6 serving without decode")
+    phase("6 serving without decode, and the serving example's twin")
     for argv in (["--mode", "real", "--requests", "40", "--quiet"],
                  ["--mode", "online", "--engine", "real", "--requests", "60",
                   "--quiet"]):
@@ -1811,6 +2139,15 @@ def main() -> int:
         if result["completed"] != want:
             raise AssertionError(f"{argv}: {result['completed']} of {want} "
                                  "requests completed")
+    # the serving example's twin: 150 requests under COSERVE and SAMBA
+    for policy, m in serve_real_experts.main(["--device", "cuda"]).items():
+        print(json.dumps({"serve_real_experts": policy,
+                          "completed": m.completed, "switches": m.switches,
+                          "makespan_s": m.makespan}), flush=True)
+        if m.completed != serve_real_experts.N_REQS:
+            raise AssertionError(f"serve_real_experts {policy}: "
+                                 f"{m.completed} of "
+                                 f"{serve_real_experts.N_REQS} completed")
 
     phase("7 flash kernel vs plain")
     flash_lines = flash_vs_plain(fa, ref)
@@ -1865,6 +2202,16 @@ def main() -> int:
 
     phase("16 Whisper-medium at its published width")
     _, whisper = whisper_phases(fa, da)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    phase("17 training on the card")
+    left_gb = torch.cuda.memory_allocated() / 1e9
+    print(json.dumps({"allocated_gb_before_training": left_gb}), flush=True)
+    if left_gb > 4:
+        raise AssertionError(f"the earlier phases left {left_gb:.1f} GB "
+                             "allocated on the card")
+    training_phases()
 
     # each kernel's launches on the main paths: the serving run, the
     # routers and the five whole-model runs (8b, 11b, 13b, 14b, 16b), each

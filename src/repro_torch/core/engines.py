@@ -250,14 +250,19 @@ class _TransferWorker:
 
     def _run(self):
         while True:
-            fn, done = self._q.get()
-            try:
-                fn(self.stream)
-            except BaseException as e:  # surfaced by wait()
-                done["error"] = e
-            finally:
-                done["event"].set()
-                self._q.task_done()
+            # one job a call: the job closes over its engine, and a local
+            # of this loop would hold it (and the engine's device copies
+            # of the experts) until the next job arrives
+            self._run_one(*self._q.get())
+            self._q.task_done()
+
+    def _run_one(self, fn, done):
+        try:
+            fn(self.stream)
+        except BaseException as e:  # surfaced by wait()
+            done["error"] = e
+        finally:
+            done["event"].set()
 
     def submit(self, fn) -> dict:
         """Queue ``fn(stream)``; returns the handle ``wait`` blocks on."""

@@ -2,25 +2,47 @@
 
 A CUDA tensor launches the hand-written kernel; a CPU tensor takes its plain
 version. There is no other path and no fallback.
+
+None of the kernels has a backward, as none of the reference's Pallas
+kernels has one (``jax.grad`` through them fails). So each entry point
+refuses a differentiable call, on either device: a tensor the kernel fills
+through its C interface carries no autograd history, and the gradients of
+everything before it would silently be lost. Training runs
+``attn_impl="xla"``, the plain torch paths.
 """
 from __future__ import annotations
+
+import torch
 
 from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.mamba_scan import mamba_scan
 
 
+def _refuse_grad(name: str, *tensors) -> None:
+    if torch.is_grad_enabled() and any(
+            isinstance(t, torch.Tensor) and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name} has no backward (nor has the reference's Pallas "
+            f"kernel): it cannot take inputs that require grad while grad is "
+            f"enabled. Train with attn_impl=\"xla\", or call it under "
+            f"torch.no_grad().")
+
+
 def flash_attention_op(q, k, v, *, causal: bool = True, window: int = 0):
     """q: [B,H,S,D]; k, v: [B,Hkv,T,D]."""
+    _refuse_grad("flash_attention", q, k, v)
     return flash_attention(q, k, v, causal=causal, window=window)
 
 
 def decode_attention_op(q, k_cache, v_cache, pos, *, window: int = 0):
     """q: [B,H,D]; caches: [B,Hkv,W,D]."""
+    _refuse_grad("decode_attention", q, k_cache, v_cache)
     return decode_attention(q, k_cache, v_cache, pos, window=window)
 
 
 def mamba_scan_op(x, dt, b_mat, c_mat, a, d_vec):
     """x, dt: [B,S,D]; b_mat, c_mat: [B,S,N]; a: [D,N]; d_vec: [D].
     Returns (y [B,S,D], h_final [B,D,N])."""
+    _refuse_grad("mamba_scan", x, dt, b_mat, c_mat, a, d_vec)
     return mamba_scan(x, dt, b_mat, c_mat, a, d_vec)

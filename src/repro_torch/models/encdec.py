@@ -25,6 +25,7 @@ from __future__ import annotations
 import math
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
@@ -81,12 +82,6 @@ def init_params(gen: torch.Generator, cfg: ModelConfig):
     }
 
 
-def _layer(tree, i: int):
-    """Layer ``i``'s slice of a stacked dict (views, no copies)."""
-    return {k: _layer(v, i) if isinstance(v, dict) else v[i]
-            for k, v in tree.items()}
-
-
 # --------------------------------------------------------------------------- #
 # encoder
 # --------------------------------------------------------------------------- #
@@ -98,8 +93,7 @@ def encode(params, audio_embeds, cfg: ModelConfig):
     b, f, d = audio_embeds.shape
     x = audio_embeds.to(cdtype) + sinusoidal_positions(
         f, d, device=audio_embeds.device).to(cdtype)
-    for i in range(cfg.encoder_layers):
-        lp = _layer(params["encoder"], i)
+    for lp in L.unstack(params["encoder"], cfg.encoder_layers):
         h = L.apply_norm(x, lp["norm1"], "layernorm", cfg.norm_eps)
         out, _ = L.attention_block(lp["attn"], h, cfg, None, causal=False,
                                    compute_dtype=cdtype)
@@ -107,6 +101,14 @@ def encode(params, audio_embeds, cfg: ModelConfig):
         h = L.apply_norm(x, lp["norm2"], "layernorm", cfg.norm_eps)
         x = x + L.mlp_block(lp["mlp"], h, "gelu", cdtype)
     return L.apply_norm(x, params["enc_final"], "layernorm", cfg.norm_eps)
+
+
+def _layer_kv(xattn, enc_out, cfg: ModelConfig, cdtype):
+    """One decoder layer's cross-attention (k, v) [B, F, H, hd]."""
+    b, f, _ = enc_out.shape
+    shape = (b, f, cfg.num_kv_heads, cfg.resolved_head_dim)
+    return tuple((enc_out @ L.cast_param(xattn[f"w{n}"], cdtype)
+                  ).reshape(shape) for n in ("k", "v"))
 
 
 def cross_kv(params, enc_out, cfg: ModelConfig):
@@ -117,11 +119,9 @@ def cross_kv(params, enc_out, cfg: ModelConfig):
     shape = (cfg.num_layers, b, f, cfg.num_kv_heads, hd)
     kv = {n: torch.empty(shape, dtype=enc_out.dtype, device=enc_out.device)
           for n in ("k", "v")}
-    for i in range(cfg.num_layers):
-        xattn = _layer(params["decoder"], i)["xattn"]
-        for n in ("k", "v"):
-            kv[n][i] = (enc_out @ L.cast_param(xattn[f"w{n}"], cdtype)
-                        ).reshape(b, f, cfg.num_kv_heads, hd)
+    for i, lp in enumerate(L.unstack(params["decoder"], cfg.num_layers)):
+        kv["k"][i], kv["v"][i] = _layer_kv(lp["xattn"], enc_out, cfg,
+                                           cdtype)
     return kv
 
 
@@ -158,14 +158,29 @@ def _logits(params, x, cfg, cdtype):
 
 def decode_train(params, tokens, audio_embeds, cfg: ModelConfig):
     """Teacher-forced decoder over the full token sequence. Returns
-    logits [B, S, V]."""
+    logits [B, S, V].
+
+    Each layer's cross K/V is computed from the encoder's output before the
+    decoder runs, as the reference's ``cross_kv`` does, but kept per layer
+    rather than stacked. With ``cfg.remat`` and grad enabled each decoder
+    layer is rematerialised (``torch.utils.checkpoint``, non-reentrant), as
+    the reference checkpoints its decoder body."""
     cdtype = L.torch_dtype(cfg.compute_dtype)
     enc_out = encode(params, audio_embeds, cfg)
-    xkv = cross_kv(params, enc_out, cfg)
+    layers = L.unstack(params["decoder"], cfg.num_layers)
+    xkv = [_layer_kv(lp["xattn"], enc_out, cfg, cdtype) for lp in layers]
     x = _embed_tokens(params, tokens, cfg, cdtype)
-    for i in range(cfg.num_layers):
-        x, _ = _dec_block(_layer(params["decoder"], i), x, cfg, cdtype,
-                          xkv=_layer(xkv, i))
+
+    def body(lp, x, k, v):
+        return _dec_block(lp, x, cfg, cdtype, xkv={"k": k, "v": v})[0]
+
+    remat = cfg.remat and torch.is_grad_enabled()
+    for lp, (k, v) in zip(layers, xkv):
+        if remat:
+            x = checkpoint(body, lp, x, k, v, use_reentrant=False,
+                           preserve_rng_state=False)
+        else:
+            x = body(lp, x, k, v)
     return _logits(params, x, cfg, cdtype)
 
 
@@ -178,9 +193,10 @@ def prefill(params, tokens, audio_embeds, cfg: ModelConfig, cache_width: int):
     x = _embed_tokens(params, tokens, cfg, cdtype)
     self_cache = init_self_cache(cfg, tokens.shape[0], cache_width,
                                  device=x.device)
-    for i in range(cfg.num_layers):
-        x, (k, v) = _dec_block(_layer(params["decoder"], i), x, cfg, cdtype,
-                               xkv=_layer(xkv, i))
+    layers = zip(L.unstack(params["decoder"], cfg.num_layers),
+                 L.unstack(xkv, cfg.num_layers))
+    for i, (lp, kv) in enumerate(layers):
+        x, (k, v) = _dec_block(lp, x, cfg, cdtype, xkv=kv)
         self_cache["k"][i] = to_ring(k, cache_width)   # cast to the kv dtype
         self_cache["v"][i] = to_ring(v, cache_width)
     logits = _logits(params, x[:, -1:], cfg, cdtype)[:, 0]
@@ -194,11 +210,13 @@ def decode_step(params, token, pos: int, cache, cfg: ModelConfig):
     cache)."""
     cdtype = L.torch_dtype(cfg.compute_dtype)
     x = _embed_tokens(params, token, cfg, cdtype, offset=pos)
-    for i in range(cfg.num_layers):
-        ring = _layer(cache["self"], i)
-        x, _ = _dec_block(_layer(params["decoder"], i), x, cfg, cdtype,
+    n = cfg.num_layers
+    for lp, ring, kv in zip(L.unstack(params["decoder"], n),
+                            L.unstack(cache["self"], n),
+                            L.unstack(cache["cross"], n)):
+        x, _ = _dec_block(lp, x, cfg, cdtype,
                           self_cache=(ring["k"], ring["v"]), pos=pos,
-                          xkv=_layer(cache["cross"], i))
+                          xkv=kv)
     logits = _logits(params, x, cfg, cdtype)[:, 0]
     return logits, cache
 

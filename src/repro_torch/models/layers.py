@@ -73,6 +73,21 @@ def init_stacked(make, n: int):
     return out
 
 
+def unstack(tree, n: int):
+    """The ``n`` slices along the leading axis of a stacked dict (the
+    parameters, or a cache), as a list of dicts of views (an in-place write
+    to one reaches the stack): one ``unbind`` per leaf, whose backward
+    stacks the slices' gradients once. Indexing the stack once per slice
+    (``v[i]``) would give each slice's backward a full-size zero gradient of
+    the whole stack to add into."""
+    out = [{} for _ in range(n)]
+    for k, v in tree.items():
+        parts = unstack(v, n) if isinstance(v, dict) else v.unbind(0)
+        for dst, part in zip(out, parts):
+            dst[k] = part
+    return out
+
+
 def cast_param(p, compute_dtype):
     return p if p.dtype == compute_dtype else p.to(compute_dtype)
 

@@ -18,6 +18,7 @@ it updates in place).
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_lib
@@ -81,12 +82,6 @@ def init_params(gen: torch.Generator, cfg: ModelConfig):
 # block application
 # --------------------------------------------------------------------------- #
 
-def _period(tree, p: int):
-    """Period ``p``'s slice of a stacked dict (views, no copies)."""
-    return {k: _period(v, p) if isinstance(v, dict) else v[p]
-            for k, v in tree.items()}
-
-
 def _apply_slot(slot_params, x, cfg: ModelConfig, slot, positions, cdtype,
                 cache=None, pos=None):
     """One layer: pre-norm mixer (attention or mamba) + residual, then
@@ -145,8 +140,12 @@ def forward(params, tokens, cfg: ModelConfig, positions=None,
             input_embeds=None, mode: str = "eval"):
     """Full-sequence forward. Returns (logits [B,S,V], aux_loss): the sum
     of the MoE layers' auxiliary losses, a float32 zero without them.
-    ``mode`` is kept for the reference's signature: rematerialisation is a
-    training matter and the port runs forward only."""
+
+    With ``cfg.remat``, ``mode="train"`` and grad enabled, each period is
+    rematerialised (``torch.utils.checkpoint``, non-reentrant), as the
+    reference checkpoints its period body: the backward keeps only each
+    period's input and recomputes the rest. The stacked parameters are
+    unbound once per call (``layers.unstack``)."""
     check_ported(cfg)
     cdtype = L.torch_dtype(cfg.compute_dtype)
     x = _embed_input(params, tokens, input_embeds, cdtype)
@@ -154,14 +153,24 @@ def forward(params, tokens, cfg: ModelConfig, positions=None,
     if positions is None:
         positions = _default_positions(cfg, b, s, x.device)
     pattern = cfg.block_pattern()
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for p in range(cfg.num_periods()):
-        sliced = _period(params["slots"], p)
+
+    def period_body(sliced, x, aux):
         for i, slot in enumerate(pattern):
             x, _, a = _apply_slot(sliced[f"slot{i}"], x, cfg, slot,
                                   positions, cdtype)
             if a is not None:
                 aux = aux + a
+        return x, aux
+
+    remat = cfg.remat and mode == "train" and torch.is_grad_enabled()
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for sliced in L.unstack(params["slots"], cfg.num_periods()):
+        if remat:
+            x, aux = checkpoint(period_body, sliced, x, aux,
+                                use_reentrant=False,
+                                preserve_rng_state=False)
+        else:
+            x, aux = period_body(sliced, x, aux)
     logits = _head(params, x, cfg, cdtype)
     return logits, aux
 
@@ -195,8 +204,8 @@ def prefill(params, tokens, cfg: ModelConfig, cache_width: int,
         positions = _default_positions(cfg, b, s, x.device)
     pattern = cfg.block_pattern()
     cache = init_cache(cfg, b, cache_width, device=x.device)
-    for p in range(cfg.num_periods()):
-        sliced = _period(params["slots"], p)
+    for p, sliced in enumerate(L.unstack(params["slots"],
+                                         cfg.num_periods())):
         for i, slot in enumerate(pattern):
             x, new_cache, _ = _apply_slot(sliced[f"slot{i}"], x, cfg, slot,
                                           positions, cdtype)
@@ -229,13 +238,15 @@ def decode_step(params, token, pos: int, cache, cfg: ModelConfig,
     if positions is None:
         positions = _default_positions(cfg, b, 1, x.device, offset=pos)
     pattern = cfg.block_pattern()
-    for p in range(cfg.num_periods()):
-        sliced = _period(params["slots"], p)
+    n = cfg.num_periods()
+    rings = {name: L.unstack(entry, n) for name, entry in cache.items()}
+    for p, sliced in enumerate(L.unstack(params["slots"], n)):
         for i, slot in enumerate(pattern):
             entry = cache[f"slot{i}"]
             x, new_cache, _ = _apply_slot(sliced[f"slot{i}"], x, cfg, slot,
                                           positions, cdtype,
-                                          cache=_period(entry, p), pos=pos)
+                                          cache=rings[f"slot{i}"][p],
+                                          pos=pos)
             if slot.mixer == "mamba":
                 entry["conv"][p] = new_cache["conv"]
                 entry["ssm"][p] = new_cache["ssm"]

@@ -145,6 +145,31 @@ def test_load_rides_the_transfer_worker():
     assert "e0" not in engine.device_params
 
 
+def test_dropped_engine_is_freed_after_a_load():
+    """A transfer thread outlives its engine (it is a daemon waiting on its
+    queue); once the engine is dropped, nothing of it may stay alive, or
+    its device copies of the experts would leak from one system to the
+    next."""
+    import gc
+    import weakref
+
+    params = {"w1": torch.ones((64, 8)), "b1": torch.zeros(8),
+              "w2": torch.ones((8, 2)), "b2": torch.zeros(2)}
+    engine = _single_expert_engine(params)
+    prof = types.SimpleNamespace(load_latency_host=0.25,
+                                 load_latency_disk=1.0)
+    ex = types.SimpleNamespace(device="gpu", profile=lambda arch: prof)
+    engine.load(ex, "e0")
+    engine.wait_load(ex, "e0")
+    gone = weakref.ref(engine)
+    worker = next(iter(engine._workers.values()))
+    del engine
+    worker._q.join()                 # the job's bookkeeping has finished
+    gc.collect()
+    assert gone() is None
+    assert worker._thread.is_alive()
+
+
 def test_params_from_reference_flattens_and_keeps_dtypes():
     bf16 = np.asarray(jax.numpy.asarray([1.5, -2.0], jax.numpy.bfloat16))
     tree = {"w": np.arange(6, dtype=np.float32).reshape(2, 3),

@@ -293,3 +293,76 @@ def test_wgmma_kernel_refuses_what_it_does_not_take(cuda):
     with pytest.raises(ValueError, match="does not take"):
         fa.launch(q.float(), q.float(), q.float(), causal=True, window=0,
                   kernel="mma")
+
+
+# --------------------------------------------------------------------------- #
+# no backward: every kernel entry point refuses a differentiable call
+# --------------------------------------------------------------------------- #
+
+def op_calls(device):
+    """Each kernel entry point with small inputs on ``device``: (name,
+    inputs, call)."""
+    rng = np.random.default_rng(3)
+
+    def t(*shape):
+        return torch.from_numpy(
+            rng.standard_normal(shape).astype(np.float32)).to(device)
+
+    return [
+        ("flash_attention", [t(1, 2, 8, 32), t(1, 1, 8, 32), t(1, 1, 8, 32)],
+         lambda q, k, v: ops.flash_attention_op(q, k, v)),
+        ("decode_attention", [t(1, 2, 32), t(1, 1, 16, 32), t(1, 1, 16, 32)],
+         lambda q, k, v: ops.decode_attention_op(q, k, v, 5)),
+        ("mamba_scan", [t(1, 8, 16), t(1, 8, 16).abs() * 0.1, t(1, 8, 4),
+                        t(1, 8, 4), -t(16, 4).abs(), t(16)],
+         ops.mamba_scan_op),
+    ]
+
+
+def check_refusal(device):
+    for name, inputs, call in op_calls(device):
+        for i in range(len(inputs)):
+            args = [a.clone().requires_grad_(j == i)
+                    for j, a in enumerate(inputs)]
+            with pytest.raises(RuntimeError, match=f"{name} has no backward"):
+                call(*args)
+            with torch.no_grad():
+                call(*args)                     # serving: no error
+        call(*inputs)                           # nothing requires grad
+
+
+def test_ops_refuse_a_differentiable_call_on_the_cpu():
+    """On the CPU the plain versions would differentiate, but the entry
+    points refuse as they do on the card, so that a CPU run cannot train
+    what the card would not."""
+    check_refusal(torch.device("cpu"))
+
+
+def test_attention_block_with_pallas_refuses_to_train():
+    import dataclasses
+
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.models import layers
+
+    cfg = smoke_config(get_config("starcoder2_3b"))
+    gen = torch.Generator().manual_seed(0)
+    params = layers.init_attention(gen, cfg, torch.float32)
+    params = {k: v.requires_grad_() for k, v in params.items()}
+    x = torch.randn(1, 8, cfg.d_model, generator=gen)
+    for impl, raises in (("pallas", True), ("xla", False)):
+        c = dataclasses.replace(cfg, attn_impl=impl)
+        if raises:
+            with pytest.raises(RuntimeError, match="attn_impl=\"xla\""):
+                layers.attention_block(params, x, c, None,
+                                       compute_dtype=torch.float32)
+        else:
+            out, _ = layers.attention_block(params, x, c, None,
+                                            compute_dtype=torch.float32)
+            out.sum().backward()
+            assert params["wq"].grad is not None
+
+
+@pytest.mark.cuda
+def test_ops_refuse_a_differentiable_call_on_the_card(cuda):
+    check_refusal(cuda)
+    torch.cuda.synchronize()

@@ -24,7 +24,8 @@ VERBATIM = (
        for f in sorted(os.listdir(os.path.join(REF, pkg)))
        if f.endswith(".py")]
     + ["api/spec.py", "api/artifacts.py", "analysis/cachesan.py",
-       "models/config.py", "launch/elastic.py"]
+       "models/config.py", "launch/elastic.py", "data/__init__.py",
+       "data/pipeline.py"]
     + [f"configs/{f}" for f in sorted(os.listdir(os.path.join(REF, "configs")))
        if f.endswith(".py")])
 

@@ -145,3 +145,21 @@ def test_cli_result_keys_match_reference(argv):
 def test_cli_sim_mode_equals_reference_exactly():
     want, got = _run_both(["--mode", "sim", "--requests", "100"])
     assert got == want
+
+
+def test_serve_real_experts_twin_serves_every_request_under_both_policies():
+    """The twin of ``examples/serve_real_experts.py``: 150 requests on 16
+    components under COSERVE and SAMBA_PARALLEL, on the host. Executor
+    choice follows measured wall time, so switch counts are not compared
+    with the reference's run; COSERVE's dependency-aware grouping loads
+    fewer experts than SAMBA's either way."""
+    from repro_torch.launch import serve_real_experts
+
+    with contextlib.redirect_stdout(io.StringIO()) as out:
+        results = serve_real_experts.main(["--device", "cpu"])
+    assert list(results) == ["coserve", "samba_coe_parallel"]
+    for m in results.values():
+        assert m.completed == serve_real_experts.N_REQS == 150
+    assert results["coserve"].switches < \
+        results["samba_coe_parallel"].switches
+    assert out.getvalue().count("150 requests") == 2
