@@ -100,7 +100,26 @@ Phases, each of which ends the run with a nonzero exit when it fails:
    50), ``launch.train --resume`` to step 360 from its checkpoint, and 60
    steps with int8 error-feedback gradients, each with its tokens/s;
    (f) ``flash_attention_op`` with an input that requires grad, and a
-   train step with ``attn_impl="pallas"``, both refused.
+   train step with ``attn_impl="pallas"``, both refused; (g) one step of
+   Falcon-Mamba-7B at full width, 2 layers, float32, card against host as
+   in (a), the scan the plain path's chunked scan (``models/ssm.py``);
+   (h) Falcon-Mamba-7B at full width cut to 32 of 64 layers (float32
+   params, grads and moments) for 4 steps at B 1 x S 4096 as in (b), then one
+   Mamba layer's forward + backward at S 4096 through the chunked scan
+   and through the stepped recurrence the plain path ran before it;
+18. the dry run (``repro_torch.launch.dryrun``, meta DTensors over a fake
+   process group of 512 ranks, no card): StarCoder2-3B x train_4k,
+   Falcon-Mamba-7B x prefill_32k, Mixtral-8x22B x train_4k and
+   Whisper-medium x decode_32k on 16x16, StarCoder2-3B x decode_32k on
+   2x16x16, each cell in a process of its own, all started with phase 17
+   on the host's cores; one JSON line a cell (trace seconds, flops per
+   device, argument bytes, collective bytes by kind);
+19. the local mesh on the card: StarCoder2-3B at full width, 2 layers,
+   float32, one train step with its parameters as DTensors on
+   ``make_local_mesh()`` (NCCL, one rank) under the train rules, against
+   the plain step on the card, held as in 17(a); in a process of its own.
+
+Phase 11(a)'s plain path is the chunked scan since the sixth slice.
 
 The last two lines of output are ``{"kernels": [...]}`` and
 ``{"ok": true, "device": {...}}``.
@@ -112,8 +131,10 @@ import gc
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -916,8 +937,6 @@ def lm_router_phase(kernel, arch: str = "starcoder2_3b", layers: int = 2):
     forward: flash attention, or the selective scan) = layers x expert
     forwards, and every served forward's tokens equal the plain-torch path
     (``attn_impl="xla"``) on the same padded batch."""
-    import shutil
-
     from repro_torch.core import COSERVE, SAMBA_PARALLEL, run_real
     from repro_torch.launch import lm_coe_router as router
 
@@ -1847,10 +1866,10 @@ def train_steps(step_fn, params, opt, batch, steps: int, tokens: int,
                                / BF16_OPS_PER_S}, params, opt
 
 
-def parity_train_step(base) -> dict:
-    """17a: StarCoder2-3B at full width, 2 layers, float32 compute, remat
-    on, B 2 x S 64: one step on the card and one on the host from the same
-    parameters and batch."""
+def parity_train_step(base, label: str) -> dict:
+    """17a (StarCoder2-3B) and 17g (Falcon-Mamba-7B): ``base`` at full
+    width, 2 layers, float32 compute, remat on, B 2 x S 64: one step on
+    the card and one on the host from the same parameters and batch."""
     import dataclasses
 
     from repro_torch.data import make_batch_for
@@ -1877,7 +1896,7 @@ def parity_train_step(base) -> dict:
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     tol = TRAIN_PARITY_TOL
     lr0 = AdamWConfig().lr / AdamWConfig().warmup_steps
-    summary = {"phase": "17a parity, 2 layers fp32, card against host",
+    summary = {"phase": label,
                "allow_tf32": torch.backends.cuda.matmul.allow_tf32,
                "tol": tol, "params_atol": 2 * lr0, "peak_gb": peak_gb,
                "metrics_card": out["card"][1], "metrics_host": out["host"][1]}
@@ -1885,7 +1904,7 @@ def parity_train_step(base) -> dict:
         a, b = out["card"][1][k], out["host"][1][k]
         summary[f"{k}_rel_err"] = abs(a - b) / abs(b)
         if abs(a - b) > tol[k] * abs(b):
-            raise AssertionError(f"17a {k}: card {a} against host {b}")
+            raise AssertionError(f"{label} {k}: card {a} against host {b}")
     worst = {"mu": 0.0, "nu": 0.0, "params_abs": 0.0}
     for (name, a), (_, b) in zip(leaves_with_names(out["card"][0]),
                                  leaves_with_names(out["host"][0])):
@@ -1895,14 +1914,15 @@ def parity_train_step(base) -> dict:
         if name.startswith("['params']"):
             worst["params_abs"] = max(worst["params_abs"], err)
             if err > 2 * lr0:
-                raise AssertionError(f"17a {name}: |err| {err} > {2 * lr0}")
+                raise AssertionError(f"{label} {name}: |err| {err} > "
+                                     f"{2 * lr0}")
             continue
         kind = "mu" if ".mu" in name else "nu"
         rel = err / max(b.abs().max().item(), 1e-30)
         worst[kind] = max(worst[kind], rel)
         if rel > tol[kind]:
-            raise AssertionError(f"17a {name}: |err| {rel} of the leaf's "
-                                 f"largest, > {tol[kind]}")
+            raise AssertionError(f"{label} {name}: |err| {rel} of the "
+                                 f"leaf's largest, > {tol[kind]}")
     summary["max_err"] = worst
     print(json.dumps(summary), flush=True)
     del params, host, out
@@ -1930,12 +1950,42 @@ def run_driver(fn, argv) -> tuple:
     return out, log, stats
 
 
+def whole(label, cfg, step_fn, batch, steps, tokens, seed,
+          profile=False) -> dict:
+    """``steps`` train steps of ``cfg`` (``train_steps``) from parameters
+    drawn from ``seed`` on the card, with the state's sizes and, with
+    ``profile``, one more step's device time by kernel family."""
+    from repro_torch.training.train_loop import init_train_state
+    from repro_torch.training.tree import leaves
+
+    params, opt = init_train_state(
+        torch.Generator(device="cuda").manual_seed(seed), cfg)
+    n_params = sum(t.numel() for t in leaves(params))
+    # a gradient leaf has its parameter's shape and dtype
+    sizes = {"params_gb": state_bytes(params) / 1e9,
+             "grads_gb": state_bytes(params) / 1e9,
+             "mu_gb": state_bytes(opt.mu) / 1e9,
+             "nu_gb": state_bytes(opt.nu) / 1e9}
+    summary, params, opt = train_steps(step_fn, params, opt, batch, steps,
+                                       tokens, n_params)
+    summary = {"phase": label, "card": card_line(), "params": n_params,
+               **sizes, **summary}
+    if profile:             # one more step, by kernel family
+        split, other = family_split(
+            lambda: step_fn(params, opt, batch), (), n_other=8)
+        summary["step_device_ms_by_family"] = split
+        summary["step_other_top_ms"] = other
+    print(json.dumps(summary), flush=True)
+    del params, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return summary
+
+
 def training_phases() -> dict:
     """Phase 17: the port's training path on the card; returns the
     summaries by sub-phase."""
     import dataclasses
-    import shutil
-    import tempfile
 
     from repro_torch.configs import get_config
     from repro_torch.data import SyntheticLMDataset, make_batch_for
@@ -1944,7 +1994,6 @@ def training_phases() -> dict:
     from repro_torch.training.train_loop import (init_train_state,
                                                  make_train_step,
                                                  make_whisper_train_step)
-    from repro_torch.training.tree import leaves
 
     dev = torch.device("cuda")
     base = dataclasses.replace(get_config("starcoder2_3b"), remat=True,
@@ -1953,34 +2002,10 @@ def training_phases() -> dict:
     card = card_line()
 
     phase("17a one train step, card against host, float32")
-    out["17a"] = parity_train_step(base)
+    out["17a"] = parity_train_step(
+        base, "17a parity, 2 layers fp32, card against host")
     gc.collect()
     torch.cuda.empty_cache()
-
-    def whole(label, cfg, step_fn, batch, steps, tokens, seed,
-              profile=False):
-        params, opt = init_train_state(
-            torch.Generator(device=dev).manual_seed(seed), cfg)
-        n_params = sum(t.numel() for t in leaves(params))
-        # a gradient leaf has its parameter's shape and dtype
-        sizes = {"params_gb": state_bytes(params) / 1e9,
-                 "grads_gb": state_bytes(params) / 1e9,
-                 "mu_gb": state_bytes(opt.mu) / 1e9,
-                 "nu_gb": state_bytes(opt.nu) / 1e9}
-        summary, params, opt = train_steps(step_fn, params, opt, batch, steps,
-                                           tokens, n_params)
-        summary = {"phase": label, "card": card, "params": n_params,
-                   **sizes, **summary}
-        if profile:             # one more step, by kernel family
-            split, other = family_split(
-                lambda: step_fn(params, opt, batch), (), n_other=8)
-            summary["step_device_ms_by_family"] = split
-            summary["step_other_top_ms"] = other
-        print(json.dumps(summary), flush=True)
-        del params, opt
-        gc.collect()
-        torch.cuda.empty_cache()
-        return summary
 
     phase("17b StarCoder2-3B whole, 30 layers, B 1 x S 4096")
     cfg = base
@@ -2070,7 +2095,258 @@ def training_phases() -> dict:
     if len(refused) != 2 or not all("has no backward" in r
                                     for r in refused):
         raise AssertionError(f"17f: {len(refused)} of 2 calls refused")
+    out.update(falcon_training())
     return out
+
+
+def falcon_training() -> dict:
+    """17g and 17h: Falcon-Mamba-7B training through the chunked scan
+    (``models/ssm.py``), float32 params and moments, remat on."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLMDataset
+    from repro_torch.training.train_loop import make_train_step
+
+    dev = torch.device("cuda")
+    base = dataclasses.replace(get_config("falcon_mamba_7b"), remat=True,
+                               attn_impl="xla")
+    out = {}
+    phase("17g one Falcon-Mamba-7B train step, card against host, float32")
+    out["17g"] = parity_train_step(
+        base, "17g falcon-mamba-7b parity, 2 layers fp32, card against host")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    phase(f"17h Falcon-Mamba-7B at full width, {FALCON_TRAIN_LAYERS} of 64 "
+          "layers, B 1 x S 4096")
+    cfg = dataclasses.replace(base, num_layers=FALCON_TRAIN_LAYERS)
+    ds = SyntheticLMDataset(vocab_size=cfg.vocab_size, seq_len=4096,
+                            global_batch=1, seed=0, branching=2)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in ds.batch(0).items()}
+    out["17h"] = whole(f"17h falcon-mamba-7b, {FALCON_TRAIN_LAYERS} layers, "
+                       "fp32 params, bf16 compute, remat", cfg,
+                       make_train_step(cfg), batch, 4, 4096, 25,
+                       profile=True)
+    out["17h_layer"] = scan_paths_one_layer(base)
+    return out
+
+
+# 17h: Falcon-Mamba-7B's depth cut from 64 to 32 layers so that float32
+# params, grads, mu and nu (3.64 B parameters, 16 bytes each) fit one card
+FALCON_TRAIN_LAYERS = 32
+
+
+def scan_paths_one_layer(base, steps: int = 3) -> dict:
+    """One Falcon-Mamba-7B layer at full width (bf16 compute, float32
+    params), B 1 x S 4096: forward + backward through the chunked scan and
+    through the stepped recurrence the plain path ran before it
+    (``mamba_scan_ref`` under autograd), each timed by CUDA events (the
+    median of ``steps`` after a warm-up), on the same weights and input."""
+    from repro_torch.kernels.ref import mamba_scan_ref
+    from repro_torch.models import ssm
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(26)
+    params = {k: v.requires_grad_(True)
+              for k, v in ssm.init_mamba(gen, base, torch.float32).items()}
+    x = (torch.randn((1, 4096, base.d_model), generator=gen, device=dev)
+         ).to(torch.bfloat16).requires_grad_(True)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+
+    def stepped(x, dt, b_mat, c_mat, a, d_vec, chunk, h0=None):
+        return mamba_scan_ref(x, dt, b_mat, c_mat, a, d_vec, h0=h0)
+
+    def run():
+        y, _ = ssm.mamba_forward(params, x, base, torch.bfloat16)
+        y.float().square().mean().backward()
+
+    out = {"phase": "17h one layer, forward + backward, B 1 x S 4096",
+           "card": card_line()}
+    for name, scan in (("chunked_scan", ssm.chunked_scan),
+                       ("stepped_mamba_scan_ref", stepped)):
+        with wrapped(ssm, "chunked_scan", lambda _: scan):
+            run()
+            times = []
+            torch.cuda.reset_peak_memory_stats()
+            for _ in range(steps):
+                start.record()
+                run()
+                end.record()
+                end.synchronize()
+                times.append(start.elapsed_time(end))
+        out[f"{name}_ms"] = sorted(times)[len(times) // 2]
+        out[f"{name}_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["stepped_over_chunked"] = out["stepped_mamba_scan_ref_ms"] \
+        / out["chunked_scan_ms"]
+    print(json.dumps(out), flush=True)
+    del params, x
+    torch.cuda.empty_cache()
+    return out
+
+
+# --------------------------------------------------------------------------- #
+# phases 18-19: the sharding layer
+# --------------------------------------------------------------------------- #
+
+# phase 18's cells: (arch, shape, multi-pod)
+DRYRUN_CELLS = (("starcoder2_3b", "train_4k", False),
+                ("falcon_mamba_7b", "prefill_32k", False),
+                ("mixtral_8x22b", "train_4k", False),
+                ("whisper_medium", "decode_32k", False),
+                ("starcoder2_3b", "decode_32k", True))
+DRYRUN_TIMEOUT_S = 420
+
+
+def start_dryrun(out_dir: str) -> list:
+    """Phase 18's cells, each ``python -m repro_torch.launch.dryrun`` in a
+    process of its own (its fake process group of 512 ranks is that
+    process's default group), all started together on the host's cores;
+    none touches the card."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+               CUDA_VISIBLE_DEVICES="")
+    procs = []
+    for arch, shape, multi_pod in DRYRUN_CELLS:
+        out = os.path.join(out_dir, f"{arch}_{shape}_{int(multi_pod)}.json")
+        argv = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+                arch, "--shape", shape, "--out", out] + (
+                    ["--multi-pod"] if multi_pod else [])
+        log = open(out + ".log", "w")
+        procs.append((subprocess.Popen(argv, env=env, cwd=ROOT, stdout=log,
+                                       stderr=subprocess.STDOUT), out, log,
+                      time.perf_counter()))
+    return procs
+
+
+def finish_dryrun(procs: list) -> list:
+    """Waits for phase 18's cells (each within ``DRYRUN_TIMEOUT_S`` of its
+    start, killed past it), prints one JSON line per cell and fails if
+    any cell failed."""
+    results, failed = [], []
+    for proc, out, log, t0 in procs:
+        try:
+            rc = proc.wait(timeout=max(1.0, DRYRUN_TIMEOUT_S
+                                       - (time.perf_counter() - t0)))
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            rc = proc.wait()
+        log.close()
+        cell = {"ok": False, "rc": rc}
+        if os.path.exists(out):
+            with open(out) as f:
+                cell = {**json.load(f)[0], "rc": rc}
+        line = {"phase": "18 dry run", **{k: cell.get(k) for k in (
+            "arch", "shape", "mesh", "ok", "lower_s", "flops",
+            "argument_bytes", "output_bytes", "collective_bytes",
+            "collective_counts", "error", "rc")}}
+        print(json.dumps(line), flush=True)
+        results.append(line)
+        if rc != 0 or not cell.get("ok"):
+            with open(out + ".log") as f:
+                print(f.read()[-3000:], flush=True)
+            failed.append(out)
+    if failed:
+        raise AssertionError(f"18: dry-run cells failed: {failed}")
+    return results
+
+
+LOCAL_MESH_FLAG = "--local-mesh-step"
+
+
+def local_mesh_step() -> int:
+    """Phase 19's body, run by ``chip_smoke.py --local-mesh-step`` in a
+    process of its own: StarCoder2-3B at full width, 2 layers, float32,
+    one train step with the parameters as DTensors on the card's 1x1 mesh
+    (``make_local_mesh()``: NCCL, one rank) under the train rules, and the
+    plain step on the same card from the same parameters and batch; loss,
+    grad norm, ``mu``, ``nu`` and parameters held as in 17a."""
+    import copy
+    import dataclasses
+
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import make_batch_for
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import transformer
+    from repro_torch.sharding.logical import rules_for, use_rules
+    from repro_torch.sharding.partition import (distribute_tree,
+                                                param_shardings)
+    from repro_torch.training import adamw_init
+    from repro_torch.training.optimizer import AdamWConfig
+    from repro_torch.training.train_loop import make_train_step
+    from repro_torch.training.tree import leaves_with_names
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(get_config("starcoder2_3b"), num_layers=2,
+                              remat=True, attn_impl="xla",
+                              compute_dtype="float32")
+    dev = torch.device("cuda")
+    mesh = make_local_mesh()
+    rules = rules_for(cfg, mesh, "train")
+    step = make_train_step(cfg)
+    params = transformer.init_params(
+        torch.Generator(device=dev).manual_seed(27), cfg)
+    batch = {k: torch.from_numpy(v).to(dev)
+             for k, v in make_batch_for(cfg, 2, 64, seed=27).items()}
+    plain = copy.deepcopy(params)
+    p0, o0, m0 = step(plain, adamw_init(plain), batch)
+    sharded = distribute_tree(params, param_shardings(
+        params, transformer.param_axes(cfg), mesh, rules))
+    with use_rules(rules, mesh), implicit_replication():
+        p1, o1, m1 = step(sharded, adamw_init(sharded), batch)
+    tol = TRAIN_PARITY_TOL
+    lr0 = AdamWConfig().lr / AdamWConfig().warmup_steps
+    summary = {"phase": "19 local mesh, StarCoder2-3B 2 layers fp32, "
+                        "DTensor params against the plain step",
+               "card": card_line(), "mesh": list(mesh.shape),
+               "backend": dist.get_backend(), "tol": tol,
+               "metrics_plain": {k: float(v) for k, v in m0.items()},
+               "metrics_mesh": {k: float(v) for k, v in m1.items()}}
+    bad = []
+    for k in ("loss", "grad_norm"):
+        a, b = summary["metrics_mesh"][k], summary["metrics_plain"][k]
+        summary[f"{k}_rel_err"] = abs(a - b) / abs(b)
+        if abs(a - b) > tol[k] * abs(b):
+            bad.append(k)
+    worst = {"mu": 0.0, "nu": 0.0, "params_abs": 0.0}
+    for (name, a), (_, b) in zip(leaves_with_names((p0, o0)),
+                                 leaves_with_names((p1, o1))):
+        if ".step" in name:
+            continue
+        if not isinstance(b, DTensor):
+            bad.append(f"{name} is not a DTensor")
+            continue
+        err = (a.float() - b.full_tensor().float()).abs().max().item()
+        if name.startswith("[0]"):
+            worst["params_abs"] = max(worst["params_abs"], err)
+            if err > 2 * lr0:
+                bad.append(name)
+            continue
+        kind = "mu" if ".mu" in name else "nu"
+        rel = err / max(a.abs().max().item(), 1e-30)
+        worst[kind] = max(worst[kind], rel)
+        if rel > tol[kind]:
+            bad.append(name)
+    summary["max_err"] = worst
+    summary["failed"] = bad
+    print(json.dumps(summary), flush=True)
+    dist.destroy_process_group()
+    return 1 if bad else 0
+
+
+def local_mesh_phase() -> None:
+    """Phase 19 in a process of its own (a process group is its process's
+    default group); fails unless it exits with 0."""
+    out = subprocess.run([sys.executable, os.path.abspath(__file__),
+                          LOCAL_MESH_FLAG], cwd=ROOT, timeout=300)
+    if out.returncode != 0:
+        raise AssertionError(f"19: the local-mesh step exited with "
+                             f"{out.returncode}")
 
 
 def mem_available_gb() -> float:
@@ -2205,13 +2481,36 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
-    phase("17 training on the card")
-    left_gb = torch.cuda.memory_allocated() / 1e9
-    print(json.dumps({"allocated_gb_before_training": left_gb}), flush=True)
-    if left_gb > 4:
-        raise AssertionError(f"the earlier phases left {left_gb:.1f} GB "
-                             "allocated on the card")
-    training_phases()
+    # phase 18's dry-run cells run on the host's cores alongside phase 17,
+    # which keeps the card busy
+    dryrun_dir = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
+    dryrun = start_dryrun(dryrun_dir)
+    try:
+        phase("17 training on the card")
+        left_gb = torch.cuda.memory_allocated() / 1e9
+        print(json.dumps({"allocated_gb_before_training": left_gb}),
+              flush=True)
+        if left_gb > 4:
+            raise AssertionError(f"the earlier phases left {left_gb:.1f} "
+                                 "GB allocated on the card")
+        training_phases()
+
+        phase("18 the dry run: meta DTensors on a fake process group of 512 "
+              "ranks (five cells, each in its own process, started with "
+              "phase 17)")
+        finish_dryrun(dryrun)
+    finally:
+        for proc, _, log, _ in dryrun:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log.close()
+        shutil.rmtree(dryrun_dir, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    phase("19 the local mesh on the card: a train step with DTensor params")
+    local_mesh_phase()
 
     # each kernel's launches on the main paths: the serving run, the
     # routers and the five whole-model runs (8b, 11b, 13b, 14b, 16b), each
@@ -2243,4 +2542,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:] == [LOCAL_MESH_FLAG]:
+        sys.exit(local_mesh_step())
     sys.exit(main())

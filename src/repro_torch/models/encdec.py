@@ -30,6 +30,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.transformer import to_ring
+from repro_torch.sharding.logical import logical_new
 
 
 def sinusoidal_positions(length: int, d: int, offset=0, device="cpu"):
@@ -82,6 +83,30 @@ def init_params(gen: torch.Generator, cfg: ModelConfig):
     }
 
 
+def abstract_params(cfg: ModelConfig):
+    """The parameter tree on the meta device (shapes and dtypes only)."""
+    return init_params(L.MetaGenerator(), cfg)
+
+
+def param_axes(cfg: ModelConfig):
+    def layered(axes):
+        return {k: layered(v) if isinstance(v, dict) else ("layers",) + v
+                for k, v in axes.items()}
+
+    enc = layered({"norm1": dict(L.NORM_AXES), "attn": dict(L.ATTN_AXES),
+                   "norm2": dict(L.NORM_AXES), "mlp": L.mlp_axes("gelu")})
+    dec = layered({"norm1": dict(L.NORM_AXES), "attn": dict(L.ATTN_AXES),
+                   "norm_x": dict(L.NORM_AXES), "xattn": dict(L.ATTN_AXES),
+                   "norm2": dict(L.NORM_AXES), "mlp": L.mlp_axes("gelu")})
+    return {
+        "embed": dict(L.EMBED_AXES),
+        "encoder": enc,
+        "enc_final": dict(L.NORM_AXES),
+        "decoder": dec,
+        "dec_final": dict(L.NORM_AXES),
+    }
+
+
 # --------------------------------------------------------------------------- #
 # encoder
 # --------------------------------------------------------------------------- #
@@ -117,7 +142,8 @@ def cross_kv(params, enc_out, cfg: ModelConfig):
     b, f, _ = enc_out.shape
     hd = cfg.resolved_head_dim
     shape = (cfg.num_layers, b, f, cfg.num_kv_heads, hd)
-    kv = {n: torch.empty(shape, dtype=enc_out.dtype, device=enc_out.device)
+    kv = {n: logical_new(torch.empty(shape, dtype=enc_out.dtype,
+                                     device=enc_out.device), *CROSS_AXES)
           for n in ("k", "v")}
     for i, lp in enumerate(L.unstack(params["decoder"], cfg.num_layers)):
         kv["k"][i], kv["v"][i] = _layer_kv(lp["xattn"], enc_out, cfg,
@@ -191,8 +217,8 @@ def prefill(params, tokens, audio_embeds, cfg: ModelConfig, cache_width: int):
     enc_out = encode(params, audio_embeds, cfg)
     xkv = cross_kv(params, enc_out, cfg)
     x = _embed_tokens(params, tokens, cfg, cdtype)
-    self_cache = init_self_cache(cfg, tokens.shape[0], cache_width,
-                                 device=x.device)
+    self_cache = {n: logical_new(t, *SELF_AXES) for n, t in init_self_cache(
+        cfg, tokens.shape[0], cache_width, device=x.device).items()}
     layers = zip(L.unstack(params["decoder"], cfg.num_layers),
                  L.unstack(xkv, cfg.num_layers))
     for i, (lp, kv) in enumerate(layers):
@@ -219,6 +245,13 @@ def decode_step(params, token, pos: int, cache, cfg: ModelConfig):
                           xkv=kv)
     logits = _logits(params, x, cfg, cdtype)[:, 0]
     return logits, cache
+
+
+# the caches' logical axes: the self-attention rings heads-major
+# [L, B, Hkv, W, hd], the cross K/V in the [L, B, F, H, hd] layout the
+# attention consumes
+SELF_AXES = ("layers", "batch", "kv_heads", "kv_seq", None)
+CROSS_AXES = ("layers", "batch", "kv_seq", "kv_heads", None)
 
 
 def init_self_cache(cfg: ModelConfig, batch: int, width: int, device="cpu"):

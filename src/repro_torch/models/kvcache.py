@@ -27,9 +27,27 @@ def slot_cache_shape(cfg, slot, batch: int, width: int, device="cpu"):
     }
 
 
+def slot_cache_axes(slot):
+    """Logical axes of one period-slot's cache entry: heads before the
+    ring's slots, so the model axis goes to the KV heads when they divide
+    it, else to the sequence."""
+    if slot.mixer == "attn":
+        kv = ("layers", "batch", "kv_heads", "kv_seq", None)
+        return {"k": kv, "v": kv}
+    return {
+        "conv": ("layers", "batch", None, "ssm_inner"),
+        "ssm": ("layers", "batch", "ssm_inner", "ssm_state"),
+    }
+
+
 def init_cache(cfg, batch: int, width: int, device="cpu"):
     """Cache dict: {"slot{i}": per-slot stacked cache}."""
     return {f"slot{i}": slot_cache_shape(cfg, s, batch, width, device)
+            for i, s in enumerate(cfg.block_pattern())}
+
+
+def cache_axes(cfg):
+    return {f"slot{i}": slot_cache_axes(s)
             for i, s in enumerate(cfg.block_pattern())}
 
 

@@ -6,8 +6,9 @@ in the reference's layouts. Dtypes follow the reference's promotion rules
 step by step (a bf16 tensor times a float32 one is float32; dots that the
 reference asks for with ``preferred_element_type=float32`` take float32
 operands here), so both packages round at the same places. On one card the
-reference's sharding constraints have nothing to do: ``cast_param`` is a
-cast to the compute dtype and nothing more.
+reference's sharding hints (``logical_constraint`` and ``cast_param``'s
+axes, at the reference's call sites) act only on DTensors under active
+rules and a mesh (``repro_torch.sharding``): on one card each is a no-op.
 
 ``cfg.attn_impl`` keeps its meaning: ``"xla"`` runs ``chunked_attention`` /
 ``ring_decode_attention`` in plain torch, ``"pallas"`` the hand-written
@@ -25,6 +26,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.ops import decode_attention_op, flash_attention_op
+from repro_torch.sharding.logical import (gather_leading, local_offset,
+                                          local_region, logical_constraint,
+                                          logical_reshape)
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -44,6 +48,13 @@ def dense_init(gen: torch.Generator, shape, dtype, fan_in=None):
     out = torch.empty(shape, dtype=torch.float32, device=gen.device)
     torch.nn.init.trunc_normal_(out, 0.0, 1.0, -2.0, 2.0, generator=gen)
     return out.mul_(1.0 / math.sqrt(fan_in)).to(dtype)
+
+
+class MetaGenerator(torch.Generator):
+    """A generator whose ``device`` is ``meta``: the init functions, which
+    allocate on their generator's device and draw from it, then build a
+    tree of meta tensors (shapes and dtypes, no storage, nothing drawn)."""
+    device = torch.device("meta")
 
 
 def init_stacked(make, n: int):
@@ -88,8 +99,19 @@ def unstack(tree, n: int):
     return out
 
 
-def cast_param(p, compute_dtype):
-    return p if p.dtype == compute_dtype else p.to(compute_dtype)
+def cast_param(p, compute_dtype, *axes):
+    """Cast a (possibly float32, FSDP-sharded) parameter to the compute
+    dtype, then constrain the cast to the parameter's logical ``axes``.
+    The reference pins the convert to the parameter's sharding with an
+    optimization barrier so that XLA's FSDP all-gather moves bf16, not
+    float32; torch needs no counterpart: a DTensor's dtype cast is local to
+    each shard, so a gather after it moves the compute dtype."""
+    if p.dtype == compute_dtype:
+        return p
+    out = p.to(compute_dtype)
+    if axes:
+        out = logical_constraint(out, *axes)
+    return out
 
 
 # --------------------------------------------------------------------------- #
@@ -117,6 +139,9 @@ def apply_norm(x, params, norm_type, eps):
     if norm_type == "layernorm":
         return layernorm(x, params["scale"], params["bias"], eps)
     return rmsnorm(x, params["scale"], eps)
+
+
+NORM_AXES = {"scale": (None,), "bias": (None,)}
 
 
 def init_norm(d, norm_type, dtype, device):
@@ -190,6 +215,13 @@ def chunked_attention(q, k, v, *, causal: bool, window: int = 0,
     [S, T] score matrix. ``q_offset`` gives the absolute position of q[0]
     (prefill continuation / decode). ``kv_len`` masks trailing cache slots.
     GQA expands KV to the query heads up front, as the reference does.
+
+    Under rules and a mesh, q takes ("batch", "seq_attn", "heads") and K/V
+    ("batch", -, "heads") as in the reference, and the stream runs on each
+    rank's local shards (``local_region``; its query rows start at the
+    shard's offset): every (batch, head, query row) is independent once
+    K/V are whole along the sequence. The softmax state (m, l, acc), which
+    the reference constrains to those same axes, is local to the region.
     """
     b, s, hq, hd = q.shape
     t, hkv = k.shape[1], k.shape[2]
@@ -197,15 +229,35 @@ def chunked_attention(q, k, v, *, causal: bool, window: int = 0,
     if g > 1:
         k = k.repeat_interleave(g, dim=2)
         v = v.repeat_interleave(g, dim=2)
+    kv_axes = ("batch", None, "heads", None)
+    q_axes = ("batch", "seq_attn", "heads", None)
+    k = logical_constraint(k, *kv_axes)
+    v = logical_constraint(v, *kv_axes)
+    kv_len = t if kv_len is None else kv_len
+    qh = logical_constraint((q * (hd ** -0.5)).to(q.dtype), *q_axes)
+    row0 = q_offset + local_offset(qh, 1)
+
+    def stream(qh, k, v):
+        return (_stream(qh, k, v, causal=causal, window=window, chunk=chunk,
+                        row0=row0, kv_len=kv_len),)
+
+    return local_region(stream, (qh, k, v), (q_axes, kv_axes, kv_axes),
+                        (q_axes,))[0]
+
+
+def _stream(qh, k, v, *, causal, window, chunk, row0, kv_len):
+    """``chunked_attention``'s loop over KV chunks; qh is the scaled q,
+    its first row at absolute position ``row0``."""
+    b, s, hq, hd = qh.shape
+    t = k.shape[1]
     c = min(chunk, t)
     n_chunks = (t + c - 1) // c
-    kv_len = t if kv_len is None else kv_len
-
-    qh = (q * (hd ** -0.5)).to(q.dtype).float()
-    q_pos = q_offset + torch.arange(s, device=q.device)
-    m = torch.full((b, hq, s), NEG_INF, dtype=torch.float32, device=q.device)
-    l = torch.zeros((b, hq, s), dtype=torch.float32, device=q.device)
-    acc = torch.zeros((b, hq, s, hd), dtype=torch.float32, device=q.device)
+    dtype = qh.dtype
+    qh = qh.float()
+    q_pos = row0 + torch.arange(s, device=qh.device)
+    m = torch.full((b, hq, s), NEG_INF, dtype=torch.float32, device=qh.device)
+    l = torch.zeros((b, hq, s), dtype=torch.float32, device=qh.device)
+    acc = torch.zeros((b, hq, s, hd), dtype=torch.float32, device=qh.device)
     for idx in range(n_chunks):
         # the reference pads the last chunk with zero keys, masked by kv_len
         kc = k[:, idx * c:(idx + 1) * c].float()
@@ -214,7 +266,7 @@ def chunked_attention(q, k, v, *, causal: bool, window: int = 0,
         if n < c:
             kc = F.pad(kc, (0, 0, 0, 0, 0, c - n))
             vc = F.pad(vc, (0, 0, 0, 0, 0, c - n))
-        k_pos = idx * c + torch.arange(c, device=q.device)
+        k_pos = idx * c + torch.arange(c, device=qh.device)
         scores = torch.einsum("bshd,bchd->bhsc", qh, kc)
         mask = k_pos[None, :] < kv_len
         if causal:
@@ -229,7 +281,7 @@ def chunked_attention(q, k, v, *, causal: bool, window: int = 0,
         acc = acc * alpha[..., None] + torch.einsum("bhsc,bchd->bhsd", p, vc)
         m = m_new
     out = acc / torch.clamp(l, min=1e-30)[..., None]
-    return out.transpose(1, 2).to(q.dtype)             # [b, s, hq, hd]
+    return out.transpose(1, 2).to(dtype)               # [b, s, hq, hd]
 
 
 def ring_decode_attention(q, k_cache, v_cache, pos, *, window: int = 0,
@@ -242,36 +294,88 @@ def ring_decode_attention(q, k_cache, v_cache, pos, *, window: int = 0,
 
     With ``new_kv=(k_new, v_new)`` ([B, Hkv, 1, hd]) the caches are the
     PRE-update buffers: the new token's slot is masked out of the cache
-    scores and its attention term is added explicitly.
+    scores and its attention term is added explicitly. Under rules and a
+    mesh that path runs on each rank's local shards (``local_region``); a
+    ring sharded along its slots ("kv_seq") takes the scores' max over
+    the ranks (an all-reduce) before the exponentials and leaves the
+    sums and the p.v products partial.
     """
     b, _, hq, hd = q.shape
     hkv, w = k_cache.shape[1], k_cache.shape[2]
     g = hq // hkv
+    if new_kv is not None:
+        head = ("batch", "kv_heads", None, None)
+        ring = ("batch", "kv_heads", "kv_seq", None)
+        k_new, v_new = new_kv
+        qg = logical_reshape((q * (hd ** -0.5))[:, 0], (b, hkv, g, hd),
+                             *head)
+        k_cache = logical_constraint(k_cache, *ring)
+        w0 = local_offset(k_cache, 2)
+        w_dims = [] if not hasattr(k_cache, "placements") else [
+            (k_cache.device_mesh, i)
+            for i, p in enumerate(k_cache.placements) if p.is_shard(2)]
+
+        def attend(qg, k_cache, v_cache, k_new):
+            slots = w0 + torch.arange(k_cache.shape[2], device=qg.device)
+            abs_pos = pos - torch.remainder(pos - slots, w)
+            valid = abs_pos >= 0
+            if window:
+                valid = valid & (pos - abs_pos < window)
+            valid = valid & (slots != pos % w)  # stale slot -> self term
+            scores = torch.einsum("bngd,bnwd->bngw", qg.float(),
+                                  k_cache.float())
+            scores = torch.where(valid[None, None, None, :], scores,
+                                 NEG_INF)
+            s_self = torch.einsum("bngd,bnwd->bngw", qg.float(),
+                                  k_new.float())
+            m = torch.maximum(scores.amax(-1, keepdim=True), s_self)
+            for group in w_dims:
+                from torch.distributed._functional_collectives import (
+                    all_reduce)
+                m = all_reduce(m, "max", group)
+            p = torch.exp(scores - m)
+            return (p.sum(-1, keepdim=True),
+                    torch.einsum("bngw,bnwd->bngd",
+                                 p.to(v_cache.dtype).float(),
+                                 v_cache.float()),
+                    torch.exp(s_self - m))
+
+        l, pv, p_self = local_region(
+            attend, (qg, k_cache, v_cache, k_new), (head, ring, ring, head),
+            (head, head, head), partial=(("kv_seq",), ("kv_seq",), ()))
+        denom = l + p_self
+        out = pv + p_self * v_new[:, :, 0, :][:, :, None].float()
+        out = out / denom
+        return out.reshape(b, 1, hq, hd).to(q.dtype)
     qg = (q * (hd ** -0.5)).reshape(b, hkv, g, hd)
     slots = torch.arange(w, device=q.device)
     abs_pos = pos - torch.remainder(pos - slots, w)          # [W]
     valid = abs_pos >= 0
     if window:
         valid = valid & (pos - abs_pos < window)
-    if new_kv is not None:
-        valid = valid & (slots != pos % w)      # stale slot -> self term
     scores = torch.einsum("bngd,bnwd->bngw", qg.float(), k_cache.float())
     scores = torch.where(valid[None, None, None, :], scores, NEG_INF)
-    if new_kv is not None:
-        k_new, v_new = new_kv
-        s_self = torch.einsum("bngd,bnwd->bngw", qg.float(), k_new.float())
-        m = torch.maximum(scores.amax(-1, keepdim=True), s_self)
-        p = torch.exp(scores - m)
-        p_self = torch.exp(s_self - m)
-        denom = p.sum(-1, keepdim=True) + p_self
-        out = torch.einsum("bngw,bnwd->bngd", p.to(v_cache.dtype).float(),
-                           v_cache.float())
-        out = out + p_self * v_new[:, :, 0, :][:, :, None].float()
-        out = out / denom
-        return out.reshape(b, 1, hq, hd).to(q.dtype)
     p = torch.softmax(scores, dim=-1).to(v_cache.dtype)
     out = torch.einsum("bngw,bnwd->bngd", p.float(), v_cache.float())
     return out.reshape(b, 1, hq, hd).to(q.dtype)
+
+
+def _ring_write(cache, new, slot: int) -> None:
+    """``cache[:, :, slot] = new[:, :, 0]`` in place. A DTensor ring writes
+    on the rank whose local slots hold ``slot`` (its ``new`` placed as the
+    ring's batch and heads), the other ranks write nothing."""
+    if not hasattr(cache, "placements"):
+        cache[:, :, slot:slot + 1] = new
+        return
+    local = cache.to_local()
+    slot -= local_offset(cache, 2)
+    if 0 <= slot < local.shape[2]:
+        from torch.distributed.tensor import Replicate
+
+        place = tuple(Replicate() if p.is_shard(2) else p
+                      for p in cache.placements)
+        local[:, :, slot:slot + 1] = new.redistribute(
+            cache.device_mesh, place).to_local()
 
 
 def init_attention(gen, cfg, dtype):
@@ -283,6 +387,14 @@ def init_attention(gen, cfg, dtype):
         "wo": dense_init(gen, (cfg.num_heads * hd, d), dtype,
                          fan_in=cfg.num_heads * hd),
     }
+
+
+ATTN_AXES = {
+    "wq": ("embed", "qkv"),
+    "wk": ("embed", "qkv"),
+    "wv": ("embed", "qkv"),
+    "wo": ("qkv", "embed"),
+}
 
 
 def attention_block(params, x, cfg, positions, *, cache=None, pos=None,
@@ -298,18 +410,27 @@ def attention_block(params, x, cfg, positions, *, cache=None, pos=None,
     """
     b, s, d = x.shape
     hd = cfg.resolved_head_dim
-    q = (x @ cast_param(params["wq"], compute_dtype)).reshape(
-        b, s, cfg.num_heads, hd)
+    x = gather_leading(x)
+    q_axes = ("batch", "seq_attn", "heads", None)
+    kv_axes = ("batch", "kv_seq", "kv_heads", None)
+    q = logical_reshape(
+        x @ cast_param(params["wq"], compute_dtype, *ATTN_AXES["wq"]),
+        (b, s, cfg.num_heads, hd), *q_axes)
     if cross_kv is None:
-        k = (x @ cast_param(params["wk"], compute_dtype)).reshape(
-            b, s, cfg.num_kv_heads, hd)
-        v = (x @ cast_param(params["wv"], compute_dtype)).reshape(
-            b, s, cfg.num_kv_heads, hd)
+        k = logical_reshape(
+            x @ cast_param(params["wk"], compute_dtype, *ATTN_AXES["wk"]),
+            (b, s, cfg.num_kv_heads, hd), *kv_axes)
+        v = logical_reshape(
+            x @ cast_param(params["wv"], compute_dtype, *ATTN_AXES["wv"]),
+            (b, s, cfg.num_kv_heads, hd), *kv_axes)
         if positions is not None:
             q = apply_rope(q, positions, cfg.rope_theta, cfg.mrope_sections)
             k = apply_rope(k, positions, cfg.rope_theta, cfg.mrope_sections)
     else:
         k, v = cross_kv
+    q = logical_constraint(q, *q_axes)
+    k = logical_constraint(k, *kv_axes)
+    v = logical_constraint(v, *kv_axes)
 
     use_pallas = cfg.attn_impl == "pallas"
     new_cache = None
@@ -320,8 +441,8 @@ def attention_block(params, x, cfg, positions, *, cache=None, pos=None,
         k_new = k.to(k_cache.dtype).transpose(1, 2)          # [B,Hkv,1,hd]
         v_new = v.to(v_cache.dtype).transpose(1, 2)
         if use_pallas:
-            k_cache[:, :, slot:slot + 1] = k_new
-            v_cache[:, :, slot:slot + 1] = v_new
+            _ring_write(k_cache, k_new, slot)
+            _ring_write(v_cache, v_new, slot)
             out = decode_attention_op(q[:, 0], k_cache, v_cache, pos,
                                       window=cfg.sliding_window)[:, None]
         else:
@@ -330,8 +451,8 @@ def attention_block(params, x, cfg, positions, *, cache=None, pos=None,
             out = ring_decode_attention(q, k_cache, v_cache, pos,
                                         window=cfg.sliding_window,
                                         new_kv=(k_new, v_new))
-            k_cache[:, :, slot:slot + 1] = k_new
-            v_cache[:, :, slot:slot + 1] = v_new
+            _ring_write(k_cache, k_new, slot)
+            _ring_write(v_cache, v_new, slot)
         new_cache = (k_cache, v_cache)
     elif cache is not None:  # cross-attention with cached encoder KV
         out = chunked_attention(q, k, v, causal=False, chunk=cfg.attn_chunk)
@@ -345,8 +466,13 @@ def attention_block(params, x, cfg, positions, *, cache=None, pos=None,
                                     window=cfg.sliding_window,
                                     chunk=cfg.attn_chunk)
         new_cache = (k, v)
-    out = out.reshape(b, s, cfg.num_heads * hd)
-    out = out @ cast_param(params["wo"], compute_dtype)
+    # the merge's gradient, from the product below, is split back into
+    # heads: constrained to the heads' layout first (a no-op off a mesh)
+    out = logical_constraint(out.reshape(b, s, cfg.num_heads * hd),
+                             "batch", "seq_attn", "heads")
+    out = gather_leading(out) @ cast_param(params["wo"], compute_dtype,
+                                           *ATTN_AXES["wo"])
+    out = logical_constraint(out, "batch", "seq_q", "embed_act")
     return out, new_cache
 
 
@@ -366,16 +492,37 @@ def init_mlp(gen, d, d_ff, mlp_type, dtype):
     }
 
 
-def mlp_block(params, x, mlp_type, compute_dtype=torch.bfloat16):
+MLP_AXES = {
+    "w_in": ("embed", None, "mlp"),
+    "w_up": ("embed", "mlp"),
+    "w_down": ("mlp", "embed"),
+}
+
+
+def mlp_axes(mlp_type: str):
     if mlp_type == "swiglu":
-        wi = cast_param(params["w_in"], compute_dtype)
-        gu = torch.einsum("bsd,dxf->bsxf", x, wi)      # [B,S,2,ff] fused
+        return {k: MLP_AXES[k] for k in ("w_in", "w_down")}
+    return {k: MLP_AXES[k] for k in ("w_up", "w_down")}
+
+
+def mlp_block(params, x, mlp_type, compute_dtype=torch.bfloat16):
+    x = gather_leading(x)
+    if mlp_type == "swiglu":
+        wi = cast_param(params["w_in"], compute_dtype, *MLP_AXES["w_in"])
+        # [B,S,2,ff] fused; under a mesh on local shards, as DTensor would
+        # merge (2, ff) with ff sharded and could not split it again
+        (gu,) = local_region(
+            lambda x, wi: (torch.einsum("bsd,dxf->bsxf", x, wi),), (x, wi),
+            (("batch", None, None), (None, None, "mlp")),
+            (("batch", None, None, "mlp"),))
         h = F.silu(gu[..., 0, :]) * gu[..., 1, :]
     else:
         # jax.nn.gelu defaults to the tanh approximation
-        h = F.gelu(x @ cast_param(params["w_up"], compute_dtype),
-                   approximate="tanh")
-    return h @ cast_param(params["w_down"], compute_dtype)
+        h = F.gelu(x @ cast_param(params["w_up"], compute_dtype,
+                                  *MLP_AXES["w_up"]), approximate="tanh")
+    h = gather_leading(logical_constraint(h, "batch", "seq_attn", "mlp"))
+    out = h @ cast_param(params["w_down"], compute_dtype, *MLP_AXES["w_down"])
+    return logical_constraint(out, "batch", "seq_q", "embed_act")
 
 
 # --------------------------------------------------------------------------- #
@@ -386,12 +533,23 @@ def init_embedding(gen, vocab, d, dtype):
     return {"table": dense_init(gen, (vocab, d), dtype, fan_in=d)}
 
 
+EMBED_AXES = {"table": ("vocab", "embed")}
+
+
 def embed(params, tokens, compute_dtype=torch.bfloat16):
-    return cast_param(params["table"], compute_dtype)[tokens]
+    """The table's rows of ``tokens``; under a mesh a lookup on each rank's
+    tokens into the table gathered whole."""
+    table = cast_param(params["table"], compute_dtype, *EMBED_AXES["table"])
+    (out,) = local_region(lambda table, tokens: (table[tokens],),
+                          (table, tokens), ((None, None), ("batch", None)),
+                          (("batch", None, None),))
+    return logical_constraint(out, "batch", "seq_q", "embed_act")
 
 
 def unembed(params, x, logical_vocab=0, compute_dtype=torch.bfloat16):
-    logits = x @ cast_param(params["table"], compute_dtype).T
+    x = gather_leading(x)
+    logits = x @ cast_param(params["table"], compute_dtype,
+                            *EMBED_AXES["table"]).T
     if logical_vocab and logical_vocab < params["table"].shape[0]:
         pad = params["table"].shape[0] - logical_vocab
         mask = torch.cat([
@@ -400,4 +558,4 @@ def unembed(params, x, logical_vocab=0, compute_dtype=torch.bfloat16):
             torch.full((pad,), NEG_INF, dtype=logits.dtype,
                        device=logits.device)])
         logits = logits + mask
-    return logits
+    return logical_constraint(logits, "batch", "seq_q", "vocab")

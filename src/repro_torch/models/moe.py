@@ -29,6 +29,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.layers import cast_param, dense_init
+from repro_torch.sharding.logical import (gather_leading, local_region,
+                                          logical_constraint)
 
 
 def init_moe(gen, cfg, dtype):
@@ -43,6 +45,12 @@ def init_moe(gen, cfg, dtype):
         "w_down": dense_init(gen, (e, ff, d), dtype, fan_in=ff),
     }
 
+
+MOE_AXES = {
+    "router": ("embed", None),
+    "w_in": ("experts", "embed", None, "moe_mlp"),
+    "w_down": ("experts", "moe_mlp", "embed"),
+}
 
 GROUP_SIZE = 4096  # tokens per dispatch group
 
@@ -92,41 +100,97 @@ def moe_block(params, x, cfg, compute_dtype=torch.bfloat16):
 def _moe_block(params, x, cfg, compute_dtype):
     b, s, d = x.shape
     t = b * s
-    k = cfg.moe_top_k
     e = cfg.moe_num_experts
 
     gsize = min(GROUP_SIZE, t)
     pad_t = (-t) % gsize
-    xf = x.reshape(t, d)
+    xf = gather_leading(x).reshape(t, d)
     if pad_t:
         xf = F.pad(xf, (0, 0, 0, pad_t))
     g = (t + pad_t) // gsize
     xg = xf.reshape(g, gsize, d)
+    xg = logical_constraint(xg, "moe_groups", "moe_tokens", "embed_act")
+    cap = expert_capacity(gsize, cfg)
+    e_v = e * cfg.moe_ep_split
 
-    probs, top_w, top_i = route(params, xg, cfg, compute_dtype)
+    # routing, slots and dispatch are independent for each group: under a
+    # mesh they run on each rank's groups (``local_region``), the router's
+    # weight gathered whole
+    grp, tok = ("moe_groups", None), ("moe_groups", "moe_tokens", None)
+    probs, top_w, first_counts, counts, buf_pos, buf = local_region(
+        lambda xg, router: _dispatch(xg, router, cfg, cap, compute_dtype),
+        (xg, params["router"]),
+        (("moe_groups", "moe_tokens", "embed_act"), (None, None)),
+        (tok, tok, grp, grp, grp, ("moe_groups", None, "embed_act")))
 
     # --- load-balancing auxiliary loss (Switch-style): the fraction of
     #     tokens whose first choice is each expert (exact counts) ---
-    frac_tokens = _counts(top_i[..., 0].reshape(1, -1), e)[0].float() \
-        / (g * gsize)
+    frac_tokens = first_counts.sum(dim=0).float() / (g * gsize)
     mean_probs = probs.reshape(-1, e).mean(dim=0)
     aux = e * torch.sum(frac_tokens * mean_probs)
+    expert_load = counts.sum(dim=0).to(torch.int32)
+
+    buf = logical_constraint(buf.reshape(g, e_v, cap, d), "moe_groups",
+                             "experts", None, "embed_act")
+
+    # --- expert FFN, batched over experts in the compute dtype; under a
+    #     mesh on each rank's (groups, experts, ff) shard, the down
+    #     projection's sum over a sharded ff left partial ---
+    with torch.profiler.record_function("moe_experts"):
+        wi = cast_param(params["w_in"], compute_dtype,
+                        *MOE_AXES["w_in"])                    # [Ev,d,2,f]
+        wd = cast_param(params["w_down"], compute_dtype,
+                        *MOE_AXES["w_down"])                  # [Ev,f,d]
+        (out_buf,) = local_region(
+            _experts, (buf, wi, wd),
+            (("moe_groups", "experts", None, "embed_act"),
+             ("experts", None, None, "moe_mlp"),
+             ("experts", "moe_mlp", None)),
+            (("moe_groups", "experts", None, "embed_act"),),
+            partial=(("moe_mlp",),))
+    out_buf = logical_constraint(out_buf, "moe_groups", "experts", None,
+                                 "embed_act")
+    out_flat = out_buf.reshape(g, e_v * cap, d)
+
+    (yg,) = local_region(
+        lambda out_flat, buf_pos, top_w: (_combine(out_flat, buf_pos, top_w,
+                                                   cfg, compute_dtype),),
+        (out_flat, buf_pos, top_w),
+        (("moe_groups", None, "embed_act"), grp, tok),
+        (("moe_groups", "moe_tokens", "embed_act"),))
+    yg = logical_constraint(yg, "moe_groups", "moe_tokens", "embed_act")
+
+    y = yg.reshape(g * gsize, d)
+    if pad_t:
+        y = y[:t]
+    out = logical_constraint(y.reshape(b, s, d), "batch", "seq_q",
+                             "embed_act")
+    return out, aux, expert_load
+
+
+def _dispatch(xg, router, cfg, cap: int, compute_dtype):
+    """Routing, slots and dispatch of groups ``xg`` [g, t, d]: (probs,
+    top_w, each group's counts of first choices [g, E], of all choices
+    [g, E], each choice's buffer position [g, t*kk] (``Ev*cap`` where
+    dropped), the dispatched buffer [g, Ev*cap, d])."""
+    g, gsize, d = xg.shape
+    k, e = cfg.moe_top_k, cfg.moe_num_experts
+    probs, top_w, top_i = route({"router": router}, xg, cfg, compute_dtype)
+    first_counts = _counts(top_i[..., 0], e)
 
     # --- per-group slot assignment: the position of each (token, choice)
     #     within its expert over the group's flattened (t*k) stream, i.e.
     #     the reference's one-hot cumsum, as a rank: a stable sort by
     #     expert keeps each expert's choices in stream order ---
-    cap = expert_capacity(gsize, cfg)
     flat_e = top_i.reshape(g, gsize * k)
     counts = _counts(flat_e, e)                               # [g, E]
-    expert_load = counts.sum(dim=0).to(torch.int32)
     sorted_e, order = torch.sort(flat_e, dim=1, stable=True)
     first = torch.cumsum(counts, dim=1) - counts   # each expert's first rank
-    rank = torch.arange(gsize * k, device=x.device) - first.gather(1,
-                                                                  sorted_e)
+    rank = torch.arange(gsize * k, device=xg.device) - first.gather(
+        1, sorted_e)
     slot = torch.empty_like(flat_e).scatter_(1, order, rank)
     in_cap = slot < cap
-    token_ids = torch.arange(gsize, device=x.device).repeat_interleave(k)
+    token_ids = torch.arange(gsize, device=xg.device).repeat_interleave(k)
     token_ids = token_ids.expand(g, gsize * k)
 
     # --- virtual-expert expansion: every (token, choice) goes to all sp
@@ -136,7 +200,8 @@ def _moe_block(params, x, cfg, compute_dtype):
     e_v = e * sp
     if sp > 1:
         flat_e = (flat_e[..., None] * sp
-                  + torch.arange(sp, device=x.device)).reshape(g, gsize * kk)
+                  + torch.arange(sp, device=xg.device)).reshape(g,
+                                                                gsize * kk)
         slot = slot.repeat_interleave(sp, dim=-1)
         in_cap = in_cap.repeat_interleave(sp, dim=-1)
         token_ids = token_ids.repeat_interleave(sp, dim=-1)
@@ -145,38 +210,41 @@ def _moe_block(params, x, cfg, compute_dtype):
     #     row), then a batched gather ---
     buf_pos = torch.where(in_cap, flat_e * cap + slot, e_v * cap)
     table = torch.full((g, e_v * cap + 1), gsize, dtype=torch.long,
-                       device=x.device)
+                       device=xg.device)
     table.scatter_(1, buf_pos, token_ids)          # dropped -> last column
     table = table[:, :e_v * cap]
-    rows = torch.arange(g, device=x.device)[:, None]
+    rows = torch.arange(g, device=xg.device)[:, None]
     xg_pad = F.pad(xg, (0, 0, 0, 1))                          # zero row
     buf = xg_pad[rows, table]                                 # [g, Ev*c, d]
+    return probs, top_w, first_counts, counts, buf_pos, buf
 
-    # --- expert FFN, batched over experts in the compute dtype ---
-    with torch.profiler.record_function("moe_experts"):
-        wi = cast_param(params["w_in"], compute_dtype)        # [Ev,d,2,f]
-        wd = cast_param(params["w_down"], compute_dtype)      # [Ev,f,d]
-        ff = wi.shape[-1]
-        be = buf.reshape(g, e_v, cap, d).transpose(0, 1).reshape(
-            e_v, g * cap, d)
-        gu = torch.matmul(be, wi.reshape(e_v, d, 2 * ff)).reshape(
-            e_v, g * cap, 2, ff)
-        h = F.silu(gu[..., 0, :]) * gu[..., 1, :]
-        del gu
-        out_e = torch.matmul(h, wd)                           # [Ev,g*c,d]
-    out_flat = out_e.reshape(e_v, g, cap, d).transpose(0, 1).reshape(
-        g, e_v * cap, d)
 
-    # --- combine: batched gather back to token order, weight, sum over
-    #     the k choices (and the sp slices, whose partial outputs add) ---
+def _experts(buf, wi, wd):
+    """The expert FFN on the dispatched buffer [g, Ev, cap, d]: SwiGLU's
+    fused gate/up product, SiLU x up, the down product; [g, Ev, cap, d]."""
+    g, e_v, cap, d = buf.shape
+    ff = wi.shape[-1]
+    be = buf.transpose(0, 1).reshape(e_v, g * cap, d)
+    gu = torch.matmul(be, wi.reshape(e_v, d, 2 * ff)).reshape(
+        e_v, g * cap, 2, ff)
+    h = F.silu(gu[..., 0, :]) * gu[..., 1, :]
+    del gu
+    out_e = torch.matmul(h, wd)                               # [Ev,g*c,d]
+    return (out_e.reshape(e_v, g, cap, d).transpose(0, 1),)
+
+
+def _combine(out_flat, buf_pos, top_w, cfg, compute_dtype):
+    """Batched gather of the expert outputs [g, Ev*cap, d] back to token
+    order, weighted, summed over the k choices (and the sp slices, whose
+    partial outputs add): [g, t, d]."""
+    g, _, d = out_flat.shape
+    gsize = top_w.shape[1]
+    sp = cfg.moe_ep_split
+    kk = cfg.moe_top_k * sp
+    rows = torch.arange(g, device=out_flat.device)[:, None]
     out_pad = F.pad(out_flat, (0, 0, 0, 1))                   # zero row
     gathered = out_pad[rows, buf_pos]                         # [g, t*kk, d]
     w_comb = top_w if sp == 1 else top_w.repeat_interleave(sp, dim=-1)
     gathered = gathered.reshape(g, gsize, kk, d) \
         * w_comb[..., None].to(compute_dtype)
-    yg = gathered.sum(dim=2)                                  # [g, t, d]
-
-    y = yg.reshape(g * gsize, d)
-    if pad_t:
-        y = y[:t]
-    return y.reshape(b, s, d), aux, expert_load
+    return gathered.sum(dim=2)                                # [g, t, d]

@@ -24,7 +24,8 @@ from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.kvcache import init_cache
+from repro_torch.models.kvcache import cache_axes, init_cache
+from repro_torch.sharding.logical import local_region, logical_new
 
 
 def check_ported(cfg: ModelConfig) -> None:
@@ -57,6 +58,22 @@ def _init_slot(gen, cfg: ModelConfig, slot, dtype):
     return p
 
 
+def _slot_axes(cfg: ModelConfig, slot):
+    a = {"norm1": dict(L.NORM_AXES) if cfg.norm_type == "layernorm"
+         else {"scale": (None,)}}
+    if slot.mixer == "attn":
+        a["attn"] = dict(L.ATTN_AXES)
+    else:
+        a["mamba"] = dict(ssm_lib.MAMBA_AXES)
+    if slot.ffn is not None:
+        a["norm2"] = dict(a["norm1"])
+        if slot.ffn == "moe":
+            a["moe"] = dict(moe_lib.MOE_AXES)
+        else:
+            a["mlp"] = L.mlp_axes(cfg.mlp_type)
+    return a
+
+
 def init_params(gen: torch.Generator, cfg: ModelConfig):
     """Parameter dict drawn from ``gen`` on its device; per-slot params
     stacked along a leading periods axis (``layers.init_stacked``: one
@@ -76,6 +93,32 @@ def init_params(gen: torch.Generator, cfg: ModelConfig):
         params["lm_head"] = L.init_embedding(gen, cfg.vocab_size,
                                              cfg.d_model, dtype)
     return params
+
+
+def abstract_params(cfg: ModelConfig):
+    """The parameter tree on the meta device: the reference's
+    ``jax.eval_shape`` of ``init_params``, shapes and dtypes, nothing
+    allocated or drawn (the dry run's stand-in)."""
+    return init_params(L.MetaGenerator(), cfg)
+
+
+def param_axes(cfg: ModelConfig):
+    """The parameters' logical axes, a tree of tuples matching
+    ``init_params``'s (stacked slot leaves gain a leading "layers")."""
+    def layered(axes):
+        return {k: layered(v) if isinstance(v, dict) else ("layers",) + v
+                for k, v in axes.items()}
+
+    axes = {
+        "embed": dict(L.EMBED_AXES),
+        "slots": {f"slot{i}": layered(_slot_axes(cfg, s))
+                  for i, s in enumerate(cfg.block_pattern())},
+        "final_norm": {"scale": (None,)} if cfg.norm_type == "rmsnorm"
+        else dict(L.NORM_AXES),
+    }
+    if not cfg.tie_embeddings:
+        axes["lm_head"] = dict(L.EMBED_AXES)
+    return axes
 
 
 # --------------------------------------------------------------------------- #
@@ -182,12 +225,17 @@ def forward(params, tokens, cfg: ModelConfig, positions=None,
 def to_ring(kv_seg, width: int):
     """Place a [B,S,Hkv,hd] KV segment into a heads-major [B,Hkv,W,hd] ring:
     position j sits at slot j % W, so with S >= W the last W positions are
-    kept, rolled by S % W."""
-    s = kv_seg.shape[1]
-    k = kv_seg.transpose(1, 2)                        # [B,Hkv,S,hd]
-    if s >= width:
-        return torch.roll(k[:, :, s - width:], s % width, dims=2)
-    return torch.nn.functional.pad(k, (0, 0, 0, width - s))
+    kept, rolled by S % W. Under a mesh on each rank's (batch, heads), the
+    sequence whole."""
+    def ring(kv_seg):
+        s = kv_seg.shape[1]
+        k = kv_seg.transpose(1, 2)                    # [B,Hkv,S,hd]
+        if s >= width:
+            return (torch.roll(k[:, :, s - width:], s % width, dims=2),)
+        return (torch.nn.functional.pad(k, (0, 0, 0, width - s)),)
+
+    return local_region(ring, (kv_seg,), (("batch", None, "kv_heads", None),),
+                        (("batch", "kv_heads", None, None),))[0]
 
 
 def prefill(params, tokens, cfg: ModelConfig, cache_width: int,
@@ -203,7 +251,11 @@ def prefill(params, tokens, cfg: ModelConfig, cache_width: int,
     if positions is None:
         positions = _default_positions(cfg, b, s, x.device)
     pattern = cfg.block_pattern()
-    cache = init_cache(cfg, b, cache_width, device=x.device)
+    axes = cache_axes(cfg)
+    cache = {name: {k: logical_new(v, *axes[name][k])
+                    for k, v in entry.items()}
+             for name, entry in init_cache(cfg, b, cache_width,
+                                           device=x.device).items()}
     for p, sliced in enumerate(L.unstack(params["slots"],
                                          cfg.num_periods())):
         for i, slot in enumerate(pattern):

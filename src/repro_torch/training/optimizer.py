@@ -15,6 +15,12 @@ port does so explicitly: ``adamw_update`` writes each leaf of the params,
 a time, so the update needs two chunk-sized temporaries and never a second
 copy of the parameters or moments (at 3 B parameters a functional update
 would need another 36 GB).
+
+Sharded leaves (DTensors on a mesh, ``repro_torch.sharding``): the update
+is elementwise, so each rank updates its local shard of each leaf, after
+the leaf's gradient is brought to its parameter's placements; the global
+norm takes each sharded leaf's local sum of squares as a partial sum over
+the mesh dims that shard it and all-reduces it.
 """
 from __future__ import annotations
 
@@ -22,6 +28,7 @@ import dataclasses
 from typing import Any, NamedTuple
 
 import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate
 
 from repro_torch.training.tree import leaves, tree_map
 
@@ -48,8 +55,8 @@ UPDATE_CHUNK = 1 << 24      # elements of a leaf updated at a time
 
 def adamw_init(params) -> OptState:
     device = leaves(params)[0].device
-    zeros = lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                  device=p.device)
+    zeros = lambda p: torch.zeros_like(p, dtype=torch.float32,
+                                       memory_format=torch.contiguous_format)
     return OptState(step=torch.zeros((), dtype=torch.int32, device=device),
                     mu=tree_map(zeros, params), nu=tree_map(zeros, params))
 
@@ -65,15 +72,39 @@ def _chunks(t: torch.Tensor):
     return t.view(-1).split(UPDATE_CHUNK)
 
 
+def _local(t):
+    """A DTensor's local shard; any other tensor itself."""
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
 def global_norm(grads) -> torch.Tensor:
     """sqrt of the sum over leaves of each leaf's float32 sum of squares,
     a slice at a time. ``torch.sum`` reduces in a tree (pairwise on the
     host); ``torch.linalg.vector_norm`` accumulates in float32 runs long
     enough to be 4e-4 off at 2^24 elements, and the card's and the host's
-    norms of one model's gradients then differ."""
-    sq = [c.float().square().sum() for g in leaves(grads)
-          for c in _chunks(g)]
+    norms of one model's gradients then differ. A DTensor leaf (sharded or
+    replicated, not partial) adds its shard's sum of squares, all-reduced
+    over the mesh dims that shard it."""
+    sq = []
+    for g in leaves(grads):
+        if isinstance(g, DTensor):
+            part = torch.stack([c.float().square().sum()
+                                for c in _chunks(g.to_local())]).sum()
+            sq.append(DTensor.from_local(
+                part, g.device_mesh, [Partial() if p.is_shard() else
+                                      Replicate() for p in g.placements]
+            ).full_tensor())
+        else:
+            sq.extend(c.float().square().sum() for c in _chunks(g))
     return torch.stack(sq).sum().sqrt()
+
+
+def _as_param(g, p):
+    """A DTensor gradient at its parameter's placements (a partial sum
+    reduced, a replicated gradient sliced to the parameter's shard)."""
+    if isinstance(g, DTensor) and tuple(g.placements) != tuple(p.placements):
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
 
 
 @torch.no_grad()
@@ -82,6 +113,7 @@ def adamw_update(grads, state: OptState, params,
     """Returns (params, new_state, grad_norm). ``params``, ``state.mu`` and
     ``state.nu`` are updated IN PLACE (the returned trees are the same
     objects); ``grads`` is read only."""
+    grads = [_as_param(g, p) for g, p in zip(leaves(grads), leaves(params))]
     gnorm = global_norm(grads)
     if cfg.grad_clip:
         scale = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-12),
@@ -89,17 +121,17 @@ def adamw_update(grads, state: OptState, params,
     else:
         scale = torch.ones((), dtype=torch.float32, device=gnorm.device)
     step = state.step + 1
-    lr = _schedule(cfg, state.step)
-    stepf = step.float()
+    lr = _schedule(cfg, _local(state.step))
+    stepf = _local(step).float()
     b1c = 1 - torch.tensor(cfg.b1, dtype=torch.float32,
                            device=stepf.device) ** stepf
     b2c = 1 - torch.tensor(cfg.b2, dtype=torch.float32,
                            device=stepf.device) ** stepf
 
-    for p, g, m, v in zip(leaves(params), leaves(grads), leaves(state.mu),
+    for p, g, m, v in zip(leaves(params), grads, leaves(state.mu),
                           leaves(state.nu)):
-        for pc, gc, mc, vc in zip(_chunks(p), _chunks(g), _chunks(m),
-                                  _chunks(v)):
+        for pc, gc, mc, vc in zip(*(_chunks(_local(t)) for t in (p, g, m,
+                                                                   v))):
             g32 = gc.float() * scale
             mc.mul_(cfg.b1).add_(g32, alpha=1 - cfg.b1)
             vc.mul_(cfg.b2).add_(g32.square_(), alpha=1 - cfg.b2)

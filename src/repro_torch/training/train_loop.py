@@ -22,17 +22,26 @@ import torch
 
 from repro_torch.models import encdec, transformer
 from repro_torch.models.config import ModelConfig
+from repro_torch.sharding.logical import local_region
 from repro_torch.training.optimizer import (AdamWConfig, adamw_init,
                                             adamw_update)
 from repro_torch.training.tree import leaves, unflatten_like
 
 
 def cross_entropy_loss(logits, labels, logical_vocab: int = 0):
-    """Next-token CE (labels already shifted by the data pipeline)."""
-    logits = logits.float()
-    lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
-    return torch.mean(lse - gold)
+    """Next-token CE (labels already shifted by the data pipeline). Under
+    rules and a mesh each token's loss is taken on the rank that holds the
+    token, the vocabulary gathered whole (``local_region``)."""
+    def token_loss(logits, labels):
+        logits = logits.float()
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+        return (lse - gold,)
+
+    tokens = ("batch", "seq_q")
+    (loss,) = local_region(token_loss, (logits, labels),
+                           ((*tokens, None), tokens), (tokens,))
+    return torch.mean(loss)
 
 
 def value_and_grads(loss_fn, params, *args):

@@ -2,7 +2,8 @@
 encoder-decoder families: one step of ``make_train_step`` on the smoke
 configs of Mixtral-8x22B (MoE in every layer, a sliding window; the aux
 loss weighted by 0.01 into the loss) and Falcon-Mamba-7B (the port's
-sequential float32 scan against the reference's chunked one), and of
+chunked scan, rematerialised chunk by chunk, against the reference's), and
+of
 ``make_whisper_train_step`` on Whisper-medium's, with remat on, in float32
 compute. Helpers and tolerances are those of ``test_torch_train_step.py``.
 At these sizes every MoE group has at most 64 tokens, so routing is
