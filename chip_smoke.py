@@ -92,8 +92,10 @@ Phases, each of which ends the run with a nonzero exit when it fails:
    on the host from the same weights, loss, grad norm and every gradient
    leaf compared; (b) StarCoder2-3B whole (30 layers, float32 params, bf16
    compute, remat) for 6 steps at B 1 x S 4096 on one repeated batch: the
-   state's bytes, peak memory, wall, device and optimizer ms a step,
-   tokens/s and 6NT utilisation, the loss falling; (c) Whisper-medium
+   state's bytes, peak memory (and the memory allocated just before the
+   steps), wall, device and optimizer ms a step, tokens/s and 6NT
+   utilisation, the loss falling, then one more step under the dry run's
+   counter (``dryrun.trace_step`` on the card's tensors); (c) Whisper-medium
    whole, B 2, 1500 frames, 448 tokens, 4 steps; (d) Moonlight-16B-A3B at
    full width cut to 2 layers, B 1 x S 4096, 3 steps, aux loss positive;
    (e) ``repro_torch.launch.train_100m`` (300 steps, checkpoints every
@@ -113,11 +115,20 @@ Phases, each of which ends the run with a nonzero exit when it fails:
    Whisper-medium x decode_32k on 16x16, StarCoder2-3B x decode_32k on
    2x16x16, each cell in a process of its own, all started with phase 17
    on the host's cores; one JSON line a cell (trace seconds, flops per
-   device, argument bytes, collective bytes by kind);
+   device, argument, peak and temp bytes, bytes accessed, collective bytes
+   by kind), a cell whose peak or bytes accessed is null failing;
 19. the local mesh on the card: StarCoder2-3B at full width, 2 layers,
    float32, one train step with its parameters as DTensors on
    ``make_local_mesh()`` (NCCL, one rank) under the train rules, against
-   the plain step on the card, held as in 17(a); in a process of its own.
+   the plain step on the card, held as in 17(a); in a process of its own;
+20. the dry run's memory against the card: 17(b)'s and 17(h)'s train
+   steps traced by ``dryrun.trace_step`` on meta tensors of the card
+   run's shapes and dtypes (``chip_smoke.py --meta-train-peaks OUT``, a
+   process of its own on the host's CPU, started with phase 18); each
+   traced ``peak_bytes`` held within 5% of the card's peak for those steps
+   (``max_memory_allocated()`` less what was allocated before them that is
+   not one of their arguments), and 17(b)'s live count on the card beside
+   them, held the same way.
 
 Phase 11(a)'s plain path is the chunked scan since the sixth slice.
 
@@ -1814,9 +1825,11 @@ def train_steps(step_fn, params, opt, batch, steps: int, tokens: int,
     """``steps`` steps of ``step_fn`` on one repeated batch, each timed on
     the host clock (ending in a synchronize) and by CUDA events, with the
     optimizer's share by CUDA events around ``adamw_update``; the loss (and
-    aux loss) of each step, the peak memory from the first step on. Fails
-    unless the loss is finite and falls. Returns (summary, params, opt
-    state)."""
+    aux loss) of each step, the peak memory from the first step on, the
+    memory allocated just before the first step and the step's argument
+    bytes (params, moments and batch), so that phase 20 can take the
+    steps' own peak. Fails unless the loss is finite and falls. Returns
+    (summary, params, opt state)."""
     from repro_torch.training import train_loop
 
     opt_events = []
@@ -1836,6 +1849,8 @@ def train_steps(step_fn, params, opt, batch, steps: int, tokens: int,
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    arguments = state_bytes((params, opt, batch))
     rows = []
     with wrapped(train_loop, "adamw_update", timed_update):
         for _ in range(steps):
@@ -1857,7 +1872,13 @@ def train_steps(step_fn, params, opt, batch, steps: int, tokens: int,
         raise AssertionError(f"the loss did not fall: {losses}")
     steady = rows[1:]
     wall = sorted(r["wall_ms"] for r in steady)[len(steady) // 2]
-    return {"steps": rows, "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+    peak = torch.cuda.max_memory_allocated()
+    return {"steps": rows, "peak_gb": peak / 1e9,
+            "peak_bytes": peak, "allocated_before_steps_bytes": before,
+            "step_argument_bytes": arguments,
+            # the steps' own peak: less what was allocated before them
+            # that is not one of their arguments
+            "step_peak_bytes": peak - (before - arguments),
             "median_wall_ms": wall,
             "median_device_ms": sorted(r["device_ms"] for r in steady)[
                 len(steady) // 2],
@@ -1951,10 +1972,13 @@ def run_driver(fn, argv) -> tuple:
 
 
 def whole(label, cfg, step_fn, batch, steps, tokens, seed,
-          profile=False) -> dict:
+          profile=False, live_count=False) -> dict:
     """``steps`` train steps of ``cfg`` (``train_steps``) from parameters
     drawn from ``seed`` on the card, with the state's sizes and, with
-    ``profile``, one more step's device time by kernel family."""
+    ``profile``, one more step's device time by kernel family; with
+    ``live_count``, one more step under the dry run's counter
+    (``dryrun.trace_step`` on the card's tensors: its live bytes, the
+    backward's on the autograd engine's device thread included)."""
     from repro_torch.training.train_loop import init_train_state
     from repro_torch.training.tree import leaves
 
@@ -1975,6 +1999,13 @@ def whole(label, cfg, step_fn, batch, steps, tokens, seed,
             lambda: step_fn(params, opt, batch), (), n_other=8)
         summary["step_device_ms_by_family"] = split
         summary["step_other_top_ms"] = other
+    if live_count:
+        from repro_torch.launch.dryrun import trace_step
+
+        stats = trace_step(step_fn, params, opt, batch)
+        summary["live_count"] = {k: stats[k] for k in (
+            "peak_bytes", "temp_bytes", "bytes_accessed", "argument_bytes",
+            "lower_s")}
     print(json.dumps(summary), flush=True)
     del params, opt
     gc.collect()
@@ -2008,13 +2039,13 @@ def training_phases() -> dict:
     torch.cuda.empty_cache()
 
     phase("17b StarCoder2-3B whole, 30 layers, B 1 x S 4096")
-    cfg = base
+    cfg = train_configs()["17b"]        # base: phase 20 traces this step
     ds = SyntheticLMDataset(vocab_size=cfg.vocab_size, seq_len=4096,
                             global_batch=1, seed=0, branching=2)
     batch = {k: torch.from_numpy(v).to(dev) for k, v in ds.batch(0).items()}
     out["17b"] = whole("17b starcoder2-3b, 30 layers, fp32 params, bf16 "
                        "compute, remat", cfg, make_train_step(cfg), batch, 6,
-                       4096, 21, profile=True)
+                       4096, 21, profile=True, live_count=True)
 
     phase("17c Whisper-medium whole, 24 + 24 layers, B 2, 1500 frames, "
           "448 tokens")
@@ -2120,7 +2151,7 @@ def falcon_training() -> dict:
 
     phase(f"17h Falcon-Mamba-7B at full width, {FALCON_TRAIN_LAYERS} of 64 "
           "layers, B 1 x S 4096")
-    cfg = dataclasses.replace(base, num_layers=FALCON_TRAIN_LAYERS)
+    cfg = train_configs()["17h"]        # phase 20 traces this step
     ds = SyntheticLMDataset(vocab_size=cfg.vocab_size, seq_len=4096,
                             global_batch=1, seed=0, branching=2)
     batch = {k: torch.from_numpy(v).to(dev) for k, v in ds.batch(0).items()}
@@ -2219,18 +2250,24 @@ def start_dryrun(out_dir: str) -> list:
     return procs
 
 
+def wait_within_limit(proc, t0: float) -> int:
+    """``proc``'s exit code, the process killed past ``DRYRUN_TIMEOUT_S``
+    from its start ``t0``."""
+    try:
+        return proc.wait(timeout=max(1.0, DRYRUN_TIMEOUT_S
+                                     - (time.perf_counter() - t0)))
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        return proc.wait()
+
+
 def finish_dryrun(procs: list) -> list:
     """Waits for phase 18's cells (each within ``DRYRUN_TIMEOUT_S`` of its
     start, killed past it), prints one JSON line per cell and fails if
-    any cell failed."""
+    any cell failed or left ``peak_bytes`` or ``bytes_accessed`` null."""
     results, failed = [], []
     for proc, out, log, t0 in procs:
-        try:
-            rc = proc.wait(timeout=max(1.0, DRYRUN_TIMEOUT_S
-                                       - (time.perf_counter() - t0)))
-        except subprocess.TimeoutExpired:
-            proc.kill()
-            rc = proc.wait()
+        rc = wait_within_limit(proc, t0)
         log.close()
         cell = {"ok": False, "rc": rc}
         if os.path.exists(out):
@@ -2238,17 +2275,138 @@ def finish_dryrun(procs: list) -> list:
                 cell = {**json.load(f)[0], "rc": rc}
         line = {"phase": "18 dry run", **{k: cell.get(k) for k in (
             "arch", "shape", "mesh", "ok", "lower_s", "flops",
-            "argument_bytes", "output_bytes", "collective_bytes",
-            "collective_counts", "error", "rc")}}
+            "argument_bytes", "output_bytes", "peak_bytes", "temp_bytes",
+            "bytes_accessed", "collective_bytes", "collective_counts",
+            "error", "rc")}}
         print(json.dumps(line), flush=True)
         results.append(line)
-        if rc != 0 or not cell.get("ok"):
+        if rc != 0 or not cell.get("ok") or line["peak_bytes"] is None \
+                or line["bytes_accessed"] is None:
             with open(out + ".log") as f:
                 print(f.read()[-3000:], flush=True)
             failed.append(out)
     if failed:
         raise AssertionError(f"18: dry-run cells failed: {failed}")
     return results
+
+
+# --------------------------------------------------------------------------- #
+# phase 20: the dry run's memory against the card
+# --------------------------------------------------------------------------- #
+
+META_PEAKS_FLAG = "--meta-train-peaks"
+# the meta trace's peak against the card's, as a share of the card's
+MEMORY_TOL = 0.05
+
+
+def train_configs() -> dict:
+    """17b's and 17h's configs, by sub-phase."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    def train(arch, **cuts):
+        return dataclasses.replace(get_config(arch), remat=True,
+                                   attn_impl="xla", **cuts)
+
+    return {"17b": train("starcoder2_3b"),
+            "17h": train("falcon_mamba_7b", num_layers=FALCON_TRAIN_LAYERS)}
+
+
+def meta_train_peaks(out_path: str) -> int:
+    """Phase 20's trace, run by ``chip_smoke.py --meta-train-peaks OUT``
+    in a process of its own on the host's CPU: 17b's and 17h's train
+    steps (``make_train_step``, B 1 x S 4096) through
+    ``dryrun.trace_step`` on meta params, moments and batch of the card
+    run's shapes and dtypes; the keys of each go to ``out_path``."""
+    from repro_torch.data import SyntheticLMDataset
+    from repro_torch.launch.dryrun import trace_step
+    from repro_torch.models import transformer
+    from repro_torch.training import adamw_init
+    from repro_torch.training.train_loop import make_train_step
+
+    out = {}
+    for key, cfg in train_configs().items():
+        params = transformer.abstract_params(cfg)
+        ds = SyntheticLMDataset(vocab_size=cfg.vocab_size, seq_len=4096,
+                                global_batch=1, seed=0, branching=2)
+        batch = {k: torch.from_numpy(v).to("meta")
+                 for k, v in ds.batch(0).items()}
+        out[key] = trace_step(make_train_step(cfg), params,
+                              adamw_init(params), batch)
+        print(key, json.dumps(out[key]), flush=True)
+    with open(out_path, "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def start_memory_trace(out_dir: str) -> tuple:
+    """Phase 20's trace in a process of its own (CUDA hidden), started
+    with phase 18's cells."""
+    out = os.path.join(out_dir, "meta_train_peaks.json")
+    log = open(out + ".log", "w")
+    proc = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), META_PEAKS_FLAG, out],
+        env=dict(os.environ, CUDA_VISIBLE_DEVICES=""), cwd=ROOT, stdout=log,
+        stderr=subprocess.STDOUT)
+    return proc, out, log, time.perf_counter()
+
+
+def memory_phase(trace, training: dict) -> None:
+    """Phase 20: each meta-traced ``peak_bytes`` of 17b's and 17h's step
+    against the peak the card measured for those steps (17's
+    ``step_peak_bytes``: ``max_memory_allocated()`` over the steps less
+    what was allocated before them that is not one of their arguments),
+    within ``MEMORY_TOL`` of the card's; beside 17b's, the live count of
+    one real step on the card. The meta trace's arguments must be the
+    card's bytes."""
+    proc, out, log, t0 = trace
+    rc = wait_within_limit(proc, t0)
+    log.close()
+    if rc != 0 or not os.path.exists(out):
+        with open(out + ".log") as f:
+            print(f.read()[-3000:], flush=True)
+        raise AssertionError(f"20: the meta trace exited with {rc}")
+    with open(out) as f:
+        traced = json.load(f)
+    bad = []
+    for key in ("17b", "17h"):
+        card = training[key]
+        meta = traced[key]
+        diff = meta["peak_bytes"] - card["step_peak_bytes"]
+        line = {"phase": f"20 {key}: the meta trace's peak against the "
+                         "card's",
+                "card": card["card"],
+                "meta_peak_bytes": meta["peak_bytes"],
+                "card_step_peak_bytes": card["step_peak_bytes"],
+                "diff_bytes": diff,
+                "diff_of_card": diff / card["step_peak_bytes"],
+                "tol": MEMORY_TOL,
+                "meta_temp_bytes": meta["temp_bytes"],
+                "meta_bytes_accessed": meta["bytes_accessed"],
+                "meta_argument_bytes": meta["argument_bytes"],
+                "card_argument_bytes": card["step_argument_bytes"],
+                "card_max_memory_allocated_bytes": card["peak_bytes"],
+                "card_allocated_before_steps_bytes":
+                    card["allocated_before_steps_bytes"],
+                "meta_trace_s": meta["lower_s"]}
+        if "live_count" in card:
+            live = card["live_count"]
+            line["card_live_count_peak_bytes"] = live["peak_bytes"]
+            line["card_live_count_diff_of_card"] = \
+                (live["peak_bytes"] - card["step_peak_bytes"]) \
+                / card["step_peak_bytes"]
+            line["card_live_count_step_s"] = live["lower_s"]
+            if abs(line["card_live_count_diff_of_card"]) > MEMORY_TOL:
+                bad.append(f"{key} live count")
+        print(json.dumps(line), flush=True)
+        if abs(diff) > MEMORY_TOL * card["step_peak_bytes"]:
+            bad.append(key)
+        if meta["argument_bytes"] != card["step_argument_bytes"]:
+            bad.append(f"{key} arguments")
+    if bad:
+        raise AssertionError(f"20: outside {MEMORY_TOL:.0%} of the card's "
+                             f"peak, or other arguments: {bad}")
 
 
 LOCAL_MESH_FLAG = "--local-mesh-step"
@@ -2485,6 +2643,7 @@ def main() -> int:
     # which keeps the card busy
     dryrun_dir = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
     dryrun = start_dryrun(dryrun_dir)
+    memory_trace = start_memory_trace(dryrun_dir)
     try:
         phase("17 training on the card")
         left_gb = torch.cuda.memory_allocated() / 1e9
@@ -2493,24 +2652,29 @@ def main() -> int:
         if left_gb > 4:
             raise AssertionError(f"the earlier phases left {left_gb:.1f} "
                                  "GB allocated on the card")
-        training_phases()
+        training = training_phases()
 
         phase("18 the dry run: meta DTensors on a fake process group of 512 "
               "ranks (five cells, each in its own process, started with "
               "phase 17)")
         finish_dryrun(dryrun)
+
+        phase("19 the local mesh on the card: a train step with DTensor "
+              "params")
+        gc.collect()
+        torch.cuda.empty_cache()
+        local_mesh_phase()
+
+        phase("20 the dry run's memory against the card: 17b's and 17h's "
+              "steps traced on meta tensors (started with phase 18)")
+        memory_phase(memory_trace, training)
     finally:
-        for proc, _, log, _ in dryrun:
+        for proc, _, log, _ in (*dryrun, memory_trace):
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
             log.close()
         shutil.rmtree(dryrun_dir, ignore_errors=True)
-    gc.collect()
-    torch.cuda.empty_cache()
-
-    phase("19 the local mesh on the card: a train step with DTensor params")
-    local_mesh_phase()
 
     # each kernel's launches on the main paths: the serving run, the
     # routers and the five whole-model runs (8b, 11b, 13b, 14b, 16b), each
@@ -2544,4 +2708,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:] == [LOCAL_MESH_FLAG]:
         sys.exit(local_mesh_step())
+    if sys.argv[1:2] == [META_PEAKS_FLAG] and len(sys.argv) == 3:
+        sys.exit(meta_train_peaks(sys.argv[2]))
     sys.exit(main())

@@ -24,6 +24,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import warnings
 
 from repro_torch.api import DeploymentSpec, Session, SpecError
 from repro_torch.api.build import POLICIES
@@ -142,6 +143,31 @@ def spec_from_args(args) -> DeploymentSpec:
         serving=serving,
         workload=WorkloadSection(requests=args.requests, tenants=tenants),
         hetero=hetero, decode=decode, seed=getattr(args, "seed", 0))
+
+
+# --------------------------------------------------------------------------- #
+# legacy runners (pre-spec downstream callers) — thin Session wrappers
+# --------------------------------------------------------------------------- #
+
+def run_sim(args) -> dict:
+    return Session(spec_from_args(args)).run()
+
+
+def run_real_mode(args) -> dict:
+    return Session(spec_from_args(args)).run()
+
+
+def run_online(args) -> dict:
+    warnings.warn(
+        "run_online(args) positional wiring is deprecated — build a "
+        "DeploymentSpec (serving.mode='online') and run it through "
+        "repro_torch.api.Session",
+        DeprecationWarning, stacklevel=2)
+    return Session(spec_from_args(args)).run()
+
+
+def run_online_real(args) -> dict:
+    return Session(spec_from_args(args)).run()
 
 
 # --------------------------------------------------------------------------- #

@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: it imports neither JAX nor the JAX package,
-and its copies of the pure-Python control plane and of the model configs
-are the reference's sources with only the package name changed."""
+and its copies of the pure-Python control plane, of the model configs and
+of the static analyzer's checks and CLI are the reference's sources with
+only the package name changed."""
 import ast
 import os
 import re
@@ -84,3 +85,41 @@ def test_control_plane_copy_is_the_reference_renamed(rel):
         want = re.sub(r"\brepro\.", "repro_torch.", f.read())
     with open(os.path.join(PORT, rel), encoding="utf-8") as f:
         assert f.read() == want
+
+
+# the static analyzer's twin: the reference's text with ``repro.`` renamed,
+# and besides that only these lines, which name the package as a bare path
+# component (``module_name`` and the docstrings that describe it); its
+# registry is the port's own
+ANALYZER_TWIN = {
+    "analysis/__main__.py": [],
+    "analysis/checks.py": [
+        ("``src/repro/...`` are checked with the real registries.",
+         "``src/repro_torch/...`` are checked with the real registries."),
+        ('    """Dotted module for a file path: everything from the last '
+         '``repro``',
+         '    """Dotted module for a file path: everything from the last '
+         '``repro_torch``'),
+        ("    path component on (``.../src/repro/core/executor.py`` ->",
+         "    path component on (``.../src/repro_torch/core/executor.py`` "
+         "->"),
+        ('    ``repro_torch.core.executor``). Files outside a ``repro`` tree '
+         'get ""',
+         '    ``repro_torch.core.executor``). Files outside a '
+         '``repro_torch`` tree get ""'),
+        ('    if "repro" not in parts:', '    if "repro_torch" not in parts:'),
+        ('    i = len(parts) - 1 - parts[::-1].index("repro")',
+         '    i = len(parts) - 1 - parts[::-1].index("repro_torch")'),
+    ],
+}
+
+
+@pytest.mark.parametrize("rel", sorted(ANALYZER_TWIN))
+def test_analyzer_twin_is_the_reference_renamed(rel):
+    with open(os.path.join(REF, rel), encoding="utf-8") as f:
+        want = re.sub(r"\brepro\.", "repro_torch.", f.read()).split("\n")
+    with open(os.path.join(PORT, rel), encoding="utf-8") as f:
+        got = f.read().split("\n")
+    assert len(got) == len(want)
+    assert [(a, b) for a, b in zip(want, got) if a != b] \
+        == ANALYZER_TWIN[rel]

@@ -11,7 +11,9 @@ measured wall time, so they are not compared.
 
 The CLI prints the reference's result-dict keys in ``--mode real`` and
 ``--mode online --engine real``, and a 100-request ``--mode sim`` run gives
-the reference's result dict exactly.
+the reference's result dict exactly. The four legacy runners (``run_sim``,
+``run_real_mode``, ``run_online``, ``run_online_real``) each return what a
+``Session`` over ``spec_from_args`` returns.
 """
 import contextlib
 import io
@@ -163,3 +165,21 @@ def test_serve_real_experts_twin_serves_every_request_under_both_policies():
     assert results["coserve"].switches < \
         results["samba_coe_parallel"].switches
     assert out.getvalue().count("150 requests") == 2
+
+
+@pytest.mark.parametrize("runner", ["run_sim", "run_real_mode", "run_online",
+                                    "run_online_real"])
+def test_legacy_runner_returns_what_a_session_returns(runner):
+    """The reference's four pre-spec runners, in the port: each is a
+    ``Session`` over ``spec_from_args(args)``; ``run_online`` warns that
+    it is deprecated."""
+    from repro_torch.api import Session
+
+    args = tserve.build_parser().parse_args(
+        ["--mode", "sim", "--requests", "60"])
+    want = Session(tserve.spec_from_args(args)).run()
+    warns = pytest.warns(DeprecationWarning, match="repro_torch.api.Session") \
+        if runner == "run_online" else contextlib.nullcontext()
+    with warns:
+        got = getattr(tserve, runner)(args)
+    assert got == want and got["completed"] == 60
