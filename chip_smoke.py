@@ -111,12 +111,15 @@ Phases, each of which ends the run with a nonzero exit when it fails:
    and through the stepped recurrence the plain path ran before it;
 18. the dry run (``repro_torch.launch.dryrun``, meta DTensors over a fake
    process group of 512 ranks, no card): StarCoder2-3B x train_4k,
-   Falcon-Mamba-7B x prefill_32k, Mixtral-8x22B x train_4k and
-   Whisper-medium x decode_32k on 16x16, StarCoder2-3B x decode_32k on
-   2x16x16, each cell in a process of its own, all started with phase 17
-   on the host's cores; one JSON line a cell (trace seconds, flops per
-   device, argument, peak and temp bytes, bytes accessed, collective bytes
-   by kind), a cell whose peak or bytes accessed is null failing;
+   Falcon-Mamba-7B x prefill_32k, Mixtral-8x22B x train_4k,
+   Whisper-medium x decode_32k, Minitron-8B x train_4k and Minitron-8B x
+   prefill_32k on 16x16, StarCoder2-3B x decode_32k on 2x16x16, each cell
+   in a process of its own, all started with phase 17 on the host's
+   cores; one JSON line a cell (trace seconds, flops per device, argument,
+   peak and temp bytes, bytes accessed, collective bytes by kind, DTensor's
+   implicit redistributions included), a cell failing whose peak or bytes
+   accessed is null, whose peak is over one H100's 80 GB, or (StarCoder2-3B
+   x train_4k) whose flops a device exceed 130 T;
 19. the local mesh on the card: StarCoder2-3B at full width, 2 layers,
    float32, one train step with its parameters as DTensors on
    ``make_local_mesh()`` (NCCL, one rank) under the train rules, against
@@ -2226,8 +2229,16 @@ DRYRUN_CELLS = (("starcoder2_3b", "train_4k", False),
                 ("falcon_mamba_7b", "prefill_32k", False),
                 ("mixtral_8x22b", "train_4k", False),
                 ("whisper_medium", "decode_32k", False),
-                ("starcoder2_3b", "decode_32k", True))
+                ("starcoder2_3b", "decode_32k", True),
+                ("minitron_8b", "train_4k", False),
+                ("minitron_8b", "prefill_32k", False))
 DRYRUN_TIMEOUT_S = 420
+# every cell's per-device peak must fit one H100 (80 GB)
+DRYRUN_PEAK_LIMIT = 80e9
+# StarCoder2-3B x train_4k's flops a device: the reference's 95.6 T and a
+# margin, the row-parallel products' gradients split over the model axis
+# (computed whole on every rank of it, the cell took 287.4 T)
+STARCODER_TRAIN_FLOPS_LIMIT = 130e12
 
 
 def start_dryrun(out_dir: str) -> list:
@@ -2264,7 +2275,9 @@ def wait_within_limit(proc, t0: float) -> int:
 def finish_dryrun(procs: list) -> list:
     """Waits for phase 18's cells (each within ``DRYRUN_TIMEOUT_S`` of its
     start, killed past it), prints one JSON line per cell and fails if
-    any cell failed or left ``peak_bytes`` or ``bytes_accessed`` null."""
+    any cell failed, left ``peak_bytes`` or ``bytes_accessed`` null,
+    peaked over ``DRYRUN_PEAK_LIMIT`` a device, or (StarCoder2-3B x
+    train_4k) counted more than ``STARCODER_TRAIN_FLOPS_LIMIT``."""
     results, failed = [], []
     for proc, out, log, t0 in procs:
         rc = wait_within_limit(proc, t0)
@@ -2277,7 +2290,12 @@ def finish_dryrun(procs: list) -> list:
             "arch", "shape", "mesh", "ok", "lower_s", "flops",
             "argument_bytes", "output_bytes", "peak_bytes", "temp_bytes",
             "bytes_accessed", "collective_bytes", "collective_counts",
-            "error", "rc")}}
+            "error", "rc")}, "peak_limit_bytes": DRYRUN_PEAK_LIMIT}
+        flops_limit = STARCODER_TRAIN_FLOPS_LIMIT if (
+            line["arch"], line["shape"], line["mesh"]) == (
+                "starcoder2_3b", "train_4k", [16, 16]) else None
+        if flops_limit:
+            line["flops_limit"] = flops_limit
         print(json.dumps(line), flush=True)
         results.append(line)
         if rc != 0 or not cell.get("ok") or line["peak_bytes"] is None \
@@ -2285,6 +2303,10 @@ def finish_dryrun(procs: list) -> list:
             with open(out + ".log") as f:
                 print(f.read()[-3000:], flush=True)
             failed.append(out)
+        elif line["peak_bytes"] > DRYRUN_PEAK_LIMIT:
+            failed.append(f"{out}: peak {line['peak_bytes']} B")
+        elif flops_limit and line["flops"] > flops_limit:
+            failed.append(f"{out}: {line['flops']} flops")
     if failed:
         raise AssertionError(f"18: dry-run cells failed: {failed}")
     return results
@@ -2655,7 +2677,7 @@ def main() -> int:
         training = training_phases()
 
         phase("18 the dry run: meta DTensors on a fake process group of 512 "
-              "ranks (five cells, each in its own process, started with "
+              "ranks (seven cells, each in its own process, started with "
               "phase 17)")
         finish_dryrun(dryrun)
 

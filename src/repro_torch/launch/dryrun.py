@@ -15,17 +15,22 @@ Per cell, as the reference's JSON has them, all per device (one rank's
 local shards):
 
 - ``flops``: ``torch.utils.flop_counter``'s formulas over each operation
-  the step dispatches: a DTensor operation's count on its global shapes
-  divided by the ways its output is split (``Shard`` or ``Partial`` mesh
-  dims), an operation on local shards counted as it is;
+  a rank runs on its local tensors: a DTensor operation is counted by the
+  local operations DTensor runs for it, on the shards, so an output
+  replicated over a mesh axis counts its whole product on every rank of
+  that axis;
 - ``collective_bytes`` by kind (``all-gather``, ``reduce-scatter``,
   ``all-reduce``, ``all-to-all``): the result bytes of each
   ``_c10d_functional`` collective a rank launches, the accounting
-  ``repro.launch.hlo`` does on HLO text;
+  ``repro.launch.hlo`` does on HLO text. That includes the
+  redistributions DTensor makes inside one operation; on the dry run's
+  CPU mesh DTensor turns a shard-to-shard move on one mesh axis into an
+  all-gather and a chunk, so such a move counts as an all-gather;
 - ``argument_bytes`` and ``output_bytes``: the local shards' bytes;
 - ``peak_bytes``: the highest count of live bytes during the step. Each
-  operation's result storage is added once (a DTensor's through its local
-  tensor); views, aliases and in-place results add nothing; a storage
+  local operation's result storage is added once, DTensor's transient
+  gathered copies among them; views, aliases (a collective's
+  ``wait_tensor``) and in-place results add nothing; a storage
   leaves the count when it dies (a weakref callback on the storage). The
   step's arguments are registered before it runs, so the count starts at
   their bytes. Only storages on the arguments' device count. On the card
@@ -43,10 +48,16 @@ local shards):
 - ``lower_s``: the trace's seconds; ``compile_s`` is ``null``: nothing
   compiles.
 
-What the count cannot see: a redistribution DTensor makes inside one
-operation (its collective and its transient copy of the input); the
-model's explicit redistributions and everything on local shards are
-seen.
+How DTensor's work is seen: the counter returns ``NotImplemented`` for
+an operation on DTensors, so DTensor runs its redistributions and the
+local operation beneath it, and the counter sees each of them on local
+tensors, the transient gathered copies among them. What DTensor's
+sharding propagator runs to choose a sharding is not work a rank does,
+and nothing dispatched while it is on the stack is counted: its shape
+inference on global-shape ``FakeTensor``s, the decompositions it traces
+on global-shape meta tensors for an operation without a strategy of its
+own, the small mesh it makes for them. It runs on a cache miss only, so
+the first call of an operation counts what a later one does.
 
 The reference lowers 1- and 2-period variants beside the full depth
 because XLA counts a while-loop body once; an eager trace counts every
@@ -64,7 +75,7 @@ from __future__ import annotations
 
 import argparse
 import json
-import math
+import sys
 import threading
 import time
 import traceback
@@ -88,6 +99,7 @@ _COLLECTIVES = {
     "all_reduce": "all-reduce",
     "all_reduce_coalesced": "all-reduce",
     "all_to_all_single": "all-to-all",
+    "shard_dim_alltoall": "all-to-all",     # DTensor's own, on a card mesh
 }
 
 
@@ -159,7 +171,9 @@ class StepCounter(TorchDispatchMode):
         self.peak_bytes = 0
         self.argument_storage_bytes = 0
         self._lock = threading.RLock()
-        self._live: dict = {}   # id(storage) -> [nbytes, birth, weakref]
+        # id(storage) -> [nbytes, birth, storages standing for them, their
+        # weakrefs], one entry shared by the storages that alias one result
+        self._live: dict = {}
         self._events = 0        # storages added and freed so far
         self._peak_at = 0       # the event that set the peak
         self._arg_events = 0    # the last event of the arguments'
@@ -180,21 +194,42 @@ class StepCounter(TorchDispatchMode):
         self._arg_events = self._events
 
     def _add(self, storage) -> None:
-        key = id(storage)
-        ref = weakref.ref(storage, lambda _, key=key: self._free(key))
         with self._lock:
             self._events += 1
-            nbytes = storage.nbytes()
-            self._live[key] = [nbytes, self._events, ref]
-            self.live_bytes += nbytes
+            entry = [storage.nbytes(), self._events, 0, []]
+            self._hold(storage, entry)
+            self.live_bytes += entry[0]
             if self.live_bytes > self.peak_bytes:
                 self.peak_bytes = self.live_bytes
                 self._peak_at = self._events
 
-    def _free(self, key) -> None:
+    def _hold(self, storage, entry) -> None:
+        """``storage`` stands for ``entry``'s bytes: they stay live until
+        every storage that stands for them has died."""
+        key = id(storage)
+        entry[2] += 1
+        entry[3].append(weakref.ref(
+            storage, lambda _, key=key, entry=entry: self._free(key, entry)))
+        self._live[key] = entry
+
+    def _alias(self, source, results) -> None:
+        """``results`` hold ``source``'s data under storages of their own
+        (a collective's ``wait_tensor`` or autograd wrapper, which alias
+        its result on a device and copy it on meta): they keep its bytes
+        live, and add none."""
         with self._lock:
-            entry = self._live.pop(key, None)
-            if entry is not None:
+            entry = self._live.get(id(source.untyped_storage()))
+            for t in results:
+                if entry is not None \
+                        and id(t.untyped_storage()) not in self._live:
+                    self._hold(t.untyped_storage(), entry)
+
+    def _free(self, key, entry) -> None:
+        with self._lock:
+            if self._live.get(key) is entry:
+                del self._live[key]
+            entry[2] -= 1
+            if entry[2] == 0:
                 self._events += 1
                 self.live_bytes -= entry[0]
 
@@ -218,31 +253,38 @@ class StepCounter(TorchDispatchMode):
                     - self.argument_storage_bytes - outputs}
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        from torch.distributed.tensor import DTensor
+
         kwargs = kwargs or {}
+        if isinstance(func, torch._ops.HigherOrderOperator):
+            return func(*args, **kwargs)
+        if DTensor in types:
+            return NotImplemented       # DTensor runs it on local tensors
         out = func(*args, **kwargs)
+        ins = _op_tensors((*args, *kwargs.values()))
+        outs = _op_tensors(out if isinstance(out, (list, tuple)) else (out,))
+        if _in_sharding_propagation():
+            return out                  # DTensor choosing a sharding
         packet = func._overloadpacket
-        if func.namespace == "_c10d_functional":
-            kind = _COLLECTIVES.get(packet.__name__)
-            if kind is not None:
-                nbytes = sum(t.numel() * t.element_size()
-                             for t in _tensors(out))
-                self.collective_bytes[kind] = \
-                    self.collective_bytes.get(kind, 0) + nbytes
-                self.collective_counts[kind] = \
-                    self.collective_counts.get(kind, 0) + 1
+        kind = _COLLECTIVES.get(packet.__name__) if func.namespace in (
+            "_c10d_functional", "_dtensor") else None
+        if kind is not None:
+            self.collective_bytes[kind] = \
+                self.collective_bytes.get(kind, 0) + sum(map(_nbytes, outs))
+            self.collective_counts[kind] = \
+                self.collective_counts.get(kind, 0) + 1
+        elif func.namespace == "_c10d_functional":
+            self._alias(ins[0], outs)   # wait_tensor, _wrap_tensor_autograd
+            return out
         elif packet in flop_registry:
-            flops = flop_registry[packet](*args, **kwargs, out_val=out)
-            self.flops += flops // _split(out)
-        self._count_bytes(func, _op_tensors((*args, *kwargs.values())),
-                          _op_tensors(out if isinstance(out, (list, tuple))
-                                      else (out,)))
+            self.flops += flop_registry[packet](*args, **kwargs, out_val=out)
+        self._count_bytes(func, ins, outs)
         return out
 
     def _count_bytes(self, func, inputs, outputs) -> None:
-        inputs = [_local(t) for t in inputs]
         held = {id(t.untyped_storage()) for t in inputs}
         moved = 0
-        for t in map(_local, outputs):
+        for t in outputs:
             storage = t.untyped_storage()
             if id(storage) in held:             # a view or in-place result
                 continue
@@ -255,17 +297,19 @@ class StepCounter(TorchDispatchMode):
         self.bytes_accessed += moved + sum(_nbytes(t) for t in inputs)
 
 
-def _split(out) -> int:
-    """The ways a DTensor result is divided among ranks: the product of
-    the sizes of the mesh dims on which it is sharded or partial."""
-    from torch.distributed.tensor import DTensor
+# the modules of DTensor's sharding propagator
+_PROPAGATION = ("distributed/tensor/_sharding_prop.py",
+                "distributed/tensor/_decompositions.py")
 
-    first = _tensors(out)[0] if _tensors(out) else None
-    if not isinstance(first, DTensor):
-        return 1
-    return math.prod(first.device_mesh.size(i)
-                     for i, p in enumerate(first.placements)
-                     if not p.is_replicate())
+
+def _in_sharding_propagation() -> bool:
+    """Whether DTensor's sharding propagator is on the caller's stack."""
+    frame = sys._getframe(1)
+    while frame is not None:
+        if frame.f_code.co_filename.endswith(_PROPAGATION):
+            return True
+        frame = frame.f_back
+    return False
 
 
 def trace_step(fn, *args) -> dict:

@@ -142,8 +142,9 @@ def cross_kv(params, enc_out, cfg: ModelConfig):
     b, f, _ = enc_out.shape
     hd = cfg.resolved_head_dim
     shape = (cfg.num_layers, b, f, cfg.num_kv_heads, hd)
-    kv = {n: logical_new(torch.empty(shape, dtype=enc_out.dtype,
-                                     device=enc_out.device), *CROSS_AXES)
+    kv = {n: logical_new(lambda s: torch.empty(s, dtype=enc_out.dtype,
+                                               device=enc_out.device),
+                         shape, *CROSS_AXES)
           for n in ("k", "v")}
     for i, lp in enumerate(L.unstack(params["decoder"], cfg.num_layers)):
         kv["k"][i], kv["v"][i] = _layer_kv(lp["xattn"], enc_out, cfg,
@@ -177,14 +178,15 @@ def _embed_tokens(params, tokens, cfg, cdtype, offset=0):
                                     device=x.device).to(cdtype)
 
 
-def _logits(params, x, cfg, cdtype):
+def _logits(params, x, cfg, cdtype, **axes):
     x = L.apply_norm(x, params["dec_final"], "layernorm", cfg.norm_eps)
-    return L.unembed(params["embed"], x, cfg.logical_vocab_size, cdtype)
+    return L.unembed(params["embed"], x, cfg.logical_vocab_size, cdtype,
+                     **axes)
 
 
 def decode_train(params, tokens, audio_embeds, cfg: ModelConfig):
     """Teacher-forced decoder over the full token sequence. Returns
-    logits [B, S, V].
+    logits [B, S, V], under a mesh split over the vocabulary for the loss.
 
     Each layer's cross K/V is computed from the encoder's output before the
     decoder runs, as the reference's ``cross_kv`` does, but kept per layer
@@ -207,7 +209,7 @@ def decode_train(params, tokens, audio_embeds, cfg: ModelConfig):
                            preserve_rng_state=False)
         else:
             x = body(lp, x, k, v)
-    return _logits(params, x, cfg, cdtype)
+    return _logits(params, x, cfg, cdtype, axes=L.TRAIN_LOGITS_AXES)
 
 
 def prefill(params, tokens, audio_embeds, cfg: ModelConfig, cache_width: int):
@@ -217,8 +219,8 @@ def prefill(params, tokens, audio_embeds, cfg: ModelConfig, cache_width: int):
     enc_out = encode(params, audio_embeds, cfg)
     xkv = cross_kv(params, enc_out, cfg)
     x = _embed_tokens(params, tokens, cfg, cdtype)
-    self_cache = {n: logical_new(t, *SELF_AXES) for n, t in init_self_cache(
-        cfg, tokens.shape[0], cache_width, device=x.device).items()}
+    self_cache = init_self_cache(cfg, tokens.shape[0], cache_width,
+                                 device=x.device)
     layers = zip(L.unstack(params["decoder"], cfg.num_layers),
                  L.unstack(xkv, cfg.num_layers))
     for i, (lp, kv) in enumerate(layers):
@@ -255,8 +257,11 @@ CROSS_AXES = ("layers", "batch", "kv_seq", "kv_heads", None)
 
 
 def init_self_cache(cfg: ModelConfig, batch: int, width: int, device="cpu"):
+    """The zeroed self-attention rings; under rules and a mesh DTensors
+    placed by ``SELF_AXES``, each rank making only its shard."""
     hd = cfg.resolved_head_dim
     shape = (cfg.num_layers, batch, cfg.num_kv_heads, width, hd)
     kvdt = L.torch_dtype(cfg.kv_dtype)
-    return {"k": torch.zeros(shape, dtype=kvdt, device=device),
-            "v": torch.zeros(shape, dtype=kvdt, device=device)}
+    return {n: logical_new(
+                lambda s: torch.zeros(s, dtype=kvdt, device=device), shape,
+                *SELF_AXES) for n in ("k", "v")}

@@ -6,24 +6,33 @@ from __future__ import annotations
 import torch
 
 from repro_torch.models.layers import torch_dtype
+from repro_torch.sharding.logical import logical_new
 
 
 def slot_cache_shape(cfg, slot, batch: int, width: int, device="cpu"):
     """Zeroed cache entry for one period-slot (leading dim = n_periods):
     for attention {"k", "v"} [P, B, Hkv, W, hd] in the kv dtype; for mamba
     {"conv": [P, B, W_conv-1, di] in the kv dtype, "ssm": [P, B, di, N]
-    float32}."""
+    float32}. Under rules and a mesh each is a DTensor placed by
+    ``slot_cache_axes``, each rank making only its shard
+    (``sharding.logical_new``)."""
     p = cfg.num_periods()
     kvdt = torch_dtype(cfg.kv_dtype)
+    axes = slot_cache_axes(slot)
+
+    def zeros(name, shape, dtype):
+        return logical_new(
+            lambda s: torch.zeros(s, dtype=dtype, device=device), shape,
+            *axes[name])
+
     if slot.mixer == "attn":
         shape = (p, batch, cfg.num_kv_heads, width, cfg.resolved_head_dim)
-        return {"k": torch.zeros(shape, dtype=kvdt, device=device),
-                "v": torch.zeros(shape, dtype=kvdt, device=device)}
+        return {"k": zeros("k", shape, kvdt), "v": zeros("v", shape, kvdt)}
     return {
-        "conv": torch.zeros((p, batch, cfg.ssm_conv_width - 1, cfg.d_inner),
-                            dtype=kvdt, device=device),
-        "ssm": torch.zeros((p, batch, cfg.d_inner, cfg.ssm_state_dim),
-                           dtype=torch.float32, device=device),
+        "conv": zeros("conv", (p, batch, cfg.ssm_conv_width - 1,
+                               cfg.d_inner), kvdt),
+        "ssm": zeros("ssm", (p, batch, cfg.d_inner, cfg.ssm_state_dim),
+                     torch.float32),
     }
 
 

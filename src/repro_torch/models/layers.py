@@ -470,8 +470,8 @@ def attention_block(params, x, cfg, positions, *, cache=None, pos=None,
     # heads: constrained to the heads' layout first (a no-op off a mesh)
     out = logical_constraint(out.reshape(b, s, cfg.num_heads * hd),
                              "batch", "seq_attn", "heads")
-    out = gather_leading(out) @ cast_param(params["wo"], compute_dtype,
-                                           *ATTN_AXES["wo"])
+    out = gather_leading(out, "heads") @ cast_param(
+        params["wo"], compute_dtype, *ATTN_AXES["wo"])
     out = logical_constraint(out, "batch", "seq_q", "embed_act")
     return out, new_cache
 
@@ -520,7 +520,8 @@ def mlp_block(params, x, mlp_type, compute_dtype=torch.bfloat16):
         # jax.nn.gelu defaults to the tanh approximation
         h = F.gelu(x @ cast_param(params["w_up"], compute_dtype,
                                   *MLP_AXES["w_up"]), approximate="tanh")
-    h = gather_leading(logical_constraint(h, "batch", "seq_attn", "mlp"))
+    h = gather_leading(logical_constraint(h, "batch", "seq_attn", "mlp"),
+                       "mlp")
     out = h @ cast_param(params["w_down"], compute_dtype, *MLP_AXES["w_down"])
     return logical_constraint(out, "batch", "seq_q", "embed_act")
 
@@ -546,7 +547,17 @@ def embed(params, tokens, compute_dtype=torch.bfloat16):
     return logical_constraint(out, "batch", "seq_q", "embed_act")
 
 
-def unembed(params, x, logical_vocab=0, compute_dtype=torch.bfloat16):
+# a train step's logits, as the head's product leaves them: split over the
+# vocabulary, which the loss takes shard by shard (``cross_entropy_loss``)
+TRAIN_LOGITS_AXES = ("batch", None, "vocab")
+
+
+def unembed(params, x, logical_vocab=0, compute_dtype=torch.bfloat16,
+            axes=("batch", "seq_q", "vocab")):
+    """Logits [..., V], the pad columns past ``logical_vocab`` at
+    ``NEG_INF``, placed by ``axes`` (the reference's hint by default;
+    ``TRAIN_LOGITS_AXES`` for a loss, so that no rank gathers the whole
+    vocabulary for its tokens)."""
     x = gather_leading(x)
     logits = x @ cast_param(params["table"], compute_dtype,
                             *EMBED_AXES["table"]).T
@@ -558,4 +569,4 @@ def unembed(params, x, logical_vocab=0, compute_dtype=torch.bfloat16):
             torch.full((pad,), NEG_INF, dtype=logits.dtype,
                        device=logits.device)])
         logits = logits + mask
-    return logical_constraint(logits, "batch", "seq_q", "vocab")
+    return logical_constraint(logits, *axes)

@@ -24,8 +24,8 @@ from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.kvcache import cache_axes, init_cache
-from repro_torch.sharding.logical import local_region, logical_new
+from repro_torch.models.kvcache import init_cache
+from repro_torch.sharding.logical import local_region
 
 
 def check_ported(cfg: ModelConfig) -> None:
@@ -169,10 +169,10 @@ def _embed_input(params, tokens, input_embeds, cdtype):
     return L.embed(params["embed"], tokens.long(), cdtype)
 
 
-def _head(params, x, cfg: ModelConfig, cdtype):
+def _head(params, x, cfg: ModelConfig, cdtype, **axes):
     x = L.apply_norm(x, params["final_norm"], cfg.norm_type, cfg.norm_eps)
     head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
-    return L.unembed(head, x, cfg.logical_vocab_size, cdtype)
+    return L.unembed(head, x, cfg.logical_vocab_size, cdtype, **axes)
 
 
 # --------------------------------------------------------------------------- #
@@ -183,6 +183,8 @@ def forward(params, tokens, cfg: ModelConfig, positions=None,
             input_embeds=None, mode: str = "eval"):
     """Full-sequence forward. Returns (logits [B,S,V], aux_loss): the sum
     of the MoE layers' auxiliary losses, a float32 zero without them.
+    Under rules and a mesh, ``mode="train"`` leaves the logits split over
+    the vocabulary for the loss (``layers.TRAIN_LOGITS_AXES``).
 
     With ``cfg.remat``, ``mode="train"`` and grad enabled, each period is
     rematerialised (``torch.utils.checkpoint``, non-reentrant), as the
@@ -214,8 +216,9 @@ def forward(params, tokens, cfg: ModelConfig, positions=None,
                                 preserve_rng_state=False)
         else:
             x, aux = period_body(sliced, x, aux)
-    logits = _head(params, x, cfg, cdtype)
-    return logits, aux
+    if mode == "train":         # the loss's layout: split over the vocabulary
+        return _head(params, x, cfg, cdtype, axes=L.TRAIN_LOGITS_AXES), aux
+    return _head(params, x, cfg, cdtype), aux
 
 
 # --------------------------------------------------------------------------- #
@@ -251,11 +254,7 @@ def prefill(params, tokens, cfg: ModelConfig, cache_width: int,
     if positions is None:
         positions = _default_positions(cfg, b, s, x.device)
     pattern = cfg.block_pattern()
-    axes = cache_axes(cfg)
-    cache = {name: {k: logical_new(v, *axes[name][k])
-                    for k, v in entry.items()}
-             for name, entry in init_cache(cfg, b, cache_width,
-                                           device=x.device).items()}
+    cache = init_cache(cfg, b, cache_width, device=x.device)
     for p, sliced in enumerate(L.unstack(params["slots"],
                                          cfg.num_periods())):
         for i, slot in enumerate(pattern):

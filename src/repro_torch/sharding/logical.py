@@ -274,24 +274,47 @@ def local_offset(x, dim: int) -> int:
         x.shape, x.device_mesh, x.placements)[1][dim]
 
 
-def logical_new(t: torch.Tensor, *logical_axes: Optional[str]):
-    """A tensor the model makes itself (a zeroed cache, a state), under
-    rules and a mesh, as a DTensor placed by its logical axes: each rank
-    keeps its own slice of ``t``, no collective. Any tensor off a mesh is
-    returned as it is."""
+def logical_split(x, dim: int, *logical_axes: Optional[str]):
+    """(mesh dims, offset): under rules and a mesh, the mesh dims of more
+    than one rank that split ``dim`` of a DTensor ``x`` placed by
+    ``logical_axes``, and this rank's global index of its first element
+    along ``dim``; ``((), 0)`` for any other tensor, or a dim no mesh dim
+    splits."""
     rules, mesh = _STATE.rules, _STATE.mesh
+    if rules is None or mesh is None or not _is_dtensor(x):
+        return (), 0
+    from torch.distributed.tensor._utils import (
+        compute_local_shape_and_global_offset)
+
+    dim %= x.ndim
+    place = placements(resolve_spec(x.shape, logical_axes, mesh, rules), mesh)
+    dims = tuple(i for i, p in enumerate(place)
+                 if p.is_shard(dim) and mesh.size(i) > 1)
+    if not dims:
+        return (), 0
+    return dims, compute_local_shape_and_global_offset(x.shape, mesh,
+                                                       place)[1][dim]
+
+
+def logical_new(factory, shape: Sequence[int],
+                *logical_axes: Optional[str]):
+    """A tensor the model makes itself (a zeroed cache, a state) of global
+    ``shape``: ``factory(shape)`` off a mesh; under rules and a mesh a
+    DTensor placed by its logical axes, each rank making only its own
+    shard, ``factory(local shape)``, no collective."""
+    rules, mesh = _STATE.rules, _STATE.mesh
+    shape = torch.Size(shape)
     if rules is None or mesh is None:
-        return t
+        return factory(shape)
     from torch.distributed.tensor import DTensor
     from torch.distributed.tensor._utils import (
         compute_local_shape_and_global_offset)
 
-    place = placements(resolve_spec(t.shape, logical_axes, mesh, rules), mesh)
-    shape, offset = compute_local_shape_and_global_offset(t.shape, mesh,
-                                                          place)
-    local = t[tuple(slice(o, o + n) for o, n in zip(offset, shape))]
-    return DTensor.from_local(local, mesh, place, run_check=False,
-                              shape=t.shape, stride=t.stride())
+    place = placements(resolve_spec(shape, logical_axes, mesh, rules), mesh)
+    local, _ = compute_local_shape_and_global_offset(shape, mesh, place)
+    return DTensor.from_local(factory(torch.Size(local)), mesh, place,
+                              run_check=False, shape=shape,
+                              stride=_contiguous_strides(shape))
 
 
 def logical_reshape(x: torch.Tensor, shape: Sequence[int],
@@ -325,24 +348,38 @@ def logical_reshape(x: torch.Tensor, shape: Sequence[int],
     return logical_constraint(x.reshape(shape), *logical_axes)
 
 
-def gather_leading(x):
+def gather_leading(x, last: Optional[str] = None):
     """A DTensor activation [B, S, ..., K] before a product with a weight:
     every shard of a leading dim but the first (the residual stream's
     sequence dim under sequence parallelism) gathered, the all-gather the
     reference's partitioner inserts before a tensor-parallel projection.
     The product flattens the leading dims, and DTensor either refuses to
     flatten a dim split by several mesh axes or searches redistribution
-    paths for it at length on a three-axis mesh. Any other tensor is
+    paths for it at length on a three-axis mesh.
+
+    ``last``, the logical axis of K for a row-parallel product (the
+    weight's contracted dim is split over that axis), moves a freed mesh
+    axis onto K in the same redistribution where the rules put K there: K
+    split as the weight's rows are, the product and its weight gradient
+    are computed on each rank's rows. Kept replicated, DTensor would
+    gather the weight and compute the whole product, and its backward the
+    whole weight gradient, on every rank of that axis. Any other tensor is
     returned as it is."""
     if not _is_dtensor(x):
         return x
-    from torch.distributed.tensor import Replicate
+    from torch.distributed.tensor import Replicate, Shard
 
-    want = tuple(Replicate() if p.is_shard() and 0 < p.dim < x.ndim - 1
-                 else p for p in x.placements)
-    if want == tuple(x.placements):
+    want = [Replicate() if p.is_shard() and 0 < p.dim < x.ndim - 1
+            else p for p in x.placements]
+    rules, mesh = _STATE.rules, _STATE.mesh
+    if last is not None and rules is not None and mesh is not None:
+        k_place = placements(resolve_spec(x.shape[-1:], (last,), mesh,
+                                          rules), mesh)
+        want = [Shard(x.ndim - 1) if k.is_shard() and p.is_replicate()
+                else p for k, p in zip(k_place, want)]
+    if tuple(want) == tuple(x.placements):
         return x
-    return x.redistribute(x.device_mesh, want)
+    return x.redistribute(x.device_mesh, tuple(want))
 
 
 def local_region(fn, args, in_axes, out_axes, partial=()):

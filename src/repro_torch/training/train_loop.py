@@ -22,7 +22,9 @@ import torch
 
 from repro_torch.models import encdec, transformer
 from repro_torch.models.config import ModelConfig
-from repro_torch.sharding.logical import local_region
+from repro_torch.models.layers import TRAIN_LOGITS_AXES
+from repro_torch.sharding.logical import (current_mesh, local_region,
+                                          logical_split)
 from repro_torch.training.optimizer import (AdamWConfig, adamw_init,
                                             adamw_update)
 from repro_torch.training.tree import leaves, unflatten_like
@@ -30,8 +32,21 @@ from repro_torch.training.tree import leaves, unflatten_like
 
 def cross_entropy_loss(logits, labels, logical_vocab: int = 0):
     """Next-token CE (labels already shifted by the data pipeline). Under
-    rules and a mesh each token's loss is taken on the rank that holds the
-    token, the vocabulary gathered whole (``local_region``)."""
+    rules and a mesh that split the vocabulary (the layout a train step's
+    logits come in, ``layers.TRAIN_LOGITS_AXES``), each rank takes its own
+    vocabulary shard (``_VocabParallelCE``); otherwise each token's loss is
+    taken on the rank that holds the token, the vocabulary whole
+    (``local_region``)."""
+    axes = TRAIN_LOGITS_AXES
+    dims, offset = logical_split(logits, -1, *axes)
+    if dims:
+        mesh = current_mesh()
+        groups = [(mesh, d) for d in dims]
+        (loss,) = local_region(
+            lambda lg, lb: (_VocabParallelCE.apply(lg, lb, offset, groups),),
+            (logits, labels), (axes, axes[:-1]), (axes[:-1],))
+        return torch.mean(loss)
+
     def token_loss(logits, labels):
         logits = logits.float()
         lse = torch.logsumexp(logits, dim=-1)
@@ -42,6 +57,51 @@ def cross_entropy_loss(logits, labels, logical_vocab: int = 0):
     (loss,) = local_region(token_loss, (logits, labels),
                            ((*tokens, None), tokens), (tokens,))
     return torch.mean(loss)
+
+
+class _VocabParallelCE(torch.autograd.Function):
+    """Each token's CE from this rank's vocabulary shard of its logits
+    [..., Vl] (global columns ``offset``..``offset + Vl``), the shards of
+    ``groups`` (``(mesh, mesh dim)`` pairs) holding the rest: the local max
+    all-reduced by max, the local sum of ``exp(x - max)`` all-reduced by
+    sum (``lse = max + log sum``), the gold logit from the rank whose slice
+    holds the label, all-reduced as a partial sum. A padded vocabulary's
+    columns are at ``layers.NEG_INF``, finite, so max and sum stay finite.
+    The backward is ``softmax - onehot`` on the local shard, no
+    collective."""
+
+    @staticmethod
+    def forward(ctx, logits, labels, offset, groups):
+        from torch.distributed import _functional_collectives as funcol
+
+        def all_reduce(t, op):
+            for group in groups:
+                t = funcol.all_reduce(t, op, group)
+                if isinstance(t, funcol.AsyncCollectiveTensor):
+                    t = t.wait()
+            return t
+
+        x = logits.float()
+        m = all_reduce(x.amax(dim=-1), "max")
+        s = all_reduce(torch.exp(x - m[..., None]).sum(dim=-1), "sum")
+        lse = m + torch.log(s)
+        # each label's column in this shard (clamped into it), and whether
+        # the shard holds it
+        local = labels.long() - offset
+        held = (local >= 0) & (local < x.shape[-1])
+        local = local.clamp(0, x.shape[-1] - 1)
+        gold = torch.where(held, torch.gather(x, -1, local[..., None])[..., 0],
+                           0.0)
+        ctx.save_for_backward(logits, lse, local, held)
+        return lse - all_reduce(gold, "sum")
+
+    @staticmethod
+    def backward(ctx, grad):
+        logits, lse, local, held = ctx.saved_tensors
+        g = torch.exp(logits.float() - lse[..., None]) * grad[..., None]
+        g.scatter_add_(-1, local[..., None],
+                       -torch.where(held, grad, 0.0)[..., None])
+        return g.to(logits.dtype), None, None, None
 
 
 def value_and_grads(loss_fn, params, *args):
