@@ -117,9 +117,14 @@ Phases, each of which ends the run with a nonzero exit when it fails:
    in a process of its own, all started with phase 17 on the host's
    cores; one JSON line a cell (trace seconds, flops per device, argument,
    peak and temp bytes, bytes accessed, collective bytes by kind, DTensor's
-   implicit redistributions included), a cell failing whose peak or bytes
-   accessed is null, whose peak is over one H100's 80 GB, or (StarCoder2-3B
-   x train_4k) whose flops a device exceed 130 T;
+   implicit redistributions included, the mesh's type), then one line of
+   each cell's collective bytes by kind; a cell failing whose peak or bytes
+   accessed is null, whose peak is over one H100's 80 GB, whose mesh is not
+   ``"cuda"``-typed as a card run's is (on a ``"cpu"`` mesh DTensor gathers
+   a whole dim where the cards would move a shard by all-to-all), whose
+   process started CUDA, or (StarCoder2-3B x train_4k) whose flops a
+   device exceed 130 T, whose all-gather exceeds 100 GB a device or which
+   counts no all-to-all;
 19. the local mesh on the card: StarCoder2-3B at full width, 2 layers,
    float32, one train step with its parameters as DTensors on
    ``make_local_mesh()`` (NCCL, one rank) under the train rules, against
@@ -2239,6 +2244,11 @@ DRYRUN_PEAK_LIMIT = 80e9
 # margin, the row-parallel products' gradients split over the model axis
 # (computed whole on every rank of it, the cell took 287.4 T)
 STARCODER_TRAIN_FLOPS_LIMIT = 130e12
+# its all-gather bytes a device: the reference's 33.8 GB and a margin (on a
+# "cpu"-typed mesh, whose shard-to-shard moves gather whole dims, 441 GB)
+STARCODER_TRAIN_ALL_GATHER_LIMIT = 100e9
+# the mesh type of a card run, which the dry run's meshes must have
+DRYRUN_MESH_TYPE = "cuda"
 
 
 def start_dryrun(out_dir: str) -> list:
@@ -2274,10 +2284,13 @@ def wait_within_limit(proc, t0: float) -> int:
 
 def finish_dryrun(procs: list) -> list:
     """Waits for phase 18's cells (each within ``DRYRUN_TIMEOUT_S`` of its
-    start, killed past it), prints one JSON line per cell and fails if
-    any cell failed, left ``peak_bytes`` or ``bytes_accessed`` null,
-    peaked over ``DRYRUN_PEAK_LIMIT`` a device, or (StarCoder2-3B x
-    train_4k) counted more than ``STARCODER_TRAIN_FLOPS_LIMIT``."""
+    start, killed past it), prints one JSON line per cell, then each
+    cell's collective bytes by kind, and fails if any cell failed, left
+    ``peak_bytes`` or ``bytes_accessed`` null, peaked over
+    ``DRYRUN_PEAK_LIMIT`` a device, ran on a mesh not typed
+    ``DRYRUN_MESH_TYPE`` or started CUDA, or (StarCoder2-3B x train_4k)
+    counted more than ``STARCODER_TRAIN_FLOPS_LIMIT`` or
+    ``STARCODER_TRAIN_ALL_GATHER_LIMIT``, or no all-to-all."""
     results, failed = [], []
     for proc, out, log, t0 in procs:
         rc = wait_within_limit(proc, t0)
@@ -2290,14 +2303,16 @@ def finish_dryrun(procs: list) -> list:
             "arch", "shape", "mesh", "ok", "lower_s", "flops",
             "argument_bytes", "output_bytes", "peak_bytes", "temp_bytes",
             "bytes_accessed", "collective_bytes", "collective_counts",
-            "error", "rc")}, "peak_limit_bytes": DRYRUN_PEAK_LIMIT}
-        flops_limit = STARCODER_TRAIN_FLOPS_LIMIT if (
-            line["arch"], line["shape"], line["mesh"]) == (
-                "starcoder2_3b", "train_4k", [16, 16]) else None
-        if flops_limit:
-            line["flops_limit"] = flops_limit
+            "mesh_device_type", "cuda_initialized", "error", "rc")},
+            "peak_limit_bytes": DRYRUN_PEAK_LIMIT}
+        starcoder_train = (line["arch"], line["shape"], line["mesh"]) == (
+            "starcoder2_3b", "train_4k", [16, 16])
+        if starcoder_train:
+            line["flops_limit"] = STARCODER_TRAIN_FLOPS_LIMIT
+            line["all_gather_limit_bytes"] = STARCODER_TRAIN_ALL_GATHER_LIMIT
         print(json.dumps(line), flush=True)
         results.append(line)
+        coll = line["collective_bytes"] or {}
         if rc != 0 or not cell.get("ok") or line["peak_bytes"] is None \
                 or line["bytes_accessed"] is None:
             with open(out + ".log") as f:
@@ -2305,8 +2320,25 @@ def finish_dryrun(procs: list) -> list:
             failed.append(out)
         elif line["peak_bytes"] > DRYRUN_PEAK_LIMIT:
             failed.append(f"{out}: peak {line['peak_bytes']} B")
-        elif flops_limit and line["flops"] > flops_limit:
-            failed.append(f"{out}: {line['flops']} flops")
+        elif line["mesh_device_type"] != DRYRUN_MESH_TYPE:
+            failed.append(f"{out}: a {line['mesh_device_type']!r} mesh")
+        elif line["cuda_initialized"] is not False:
+            failed.append(f"{out}: CUDA started ({line['cuda_initialized']})")
+        elif starcoder_train and (
+                line["flops"] > STARCODER_TRAIN_FLOPS_LIMIT
+                or coll.get("all-gather", 0) > STARCODER_TRAIN_ALL_GATHER_LIMIT
+                or not coll.get("all-to-all")):
+            failed.append(f"{out}: {line['flops']} flops, collectives "
+                          f"{coll}")
+    # each cell's collective bytes a device by kind, in GB
+    kinds = ("all-gather", "all-to-all", "reduce-scatter", "all-reduce")
+    for line in results:
+        coll = line["collective_bytes"] or {}
+        print(f"  {line['arch']} x {line['shape']} x "
+              f"{'x'.join(map(str, line['mesh'] or []))} "
+              f"({line['mesh_device_type']} mesh): " + ", ".join(
+                  f"{k} {coll.get(k, 0) / 1e9:.3f} GB" for k in kinds),
+              flush=True)
     if failed:
         raise AssertionError(f"18: dry-run cells failed: {failed}")
     return results

@@ -23,9 +23,11 @@ local shards):
   ``all-reduce``, ``all-to-all``): the result bytes of each
   ``_c10d_functional`` collective a rank launches, the accounting
   ``repro.launch.hlo`` does on HLO text. That includes the
-  redistributions DTensor makes inside one operation; on the dry run's
-  CPU mesh DTensor turns a shard-to-shard move on one mesh axis into an
-  all-gather and a chunk, so such a move counts as an all-gather;
+  redistributions DTensor makes inside one operation. The mesh has a
+  card run's type (``"cuda"``, ``launch/mesh.py``), so DTensor launches
+  what it would launch there: a shard moved from one tensor dim to another
+  on one mesh axis is one ``_dtensor.shard_dim_alltoall``, counted as an
+  ``all-to-all`` of the local shard's bytes, with no whole-dim copy;
 - ``argument_bytes`` and ``output_bytes``: the local shards' bytes;
 - ``peak_bytes``: the highest count of live bytes during the step. Each
   local operation's result storage is added once, DTensor's transient
@@ -46,7 +48,10 @@ local shards):
   count, larger than XLA's fused one for the same step, and no
   comparison with the reference's numbers is made;
 - ``lower_s``: the trace's seconds; ``compile_s`` is ``null``: nothing
-  compiles.
+  compiles;
+- ``mesh_device_type`` and ``cuda_initialized``: the mesh's type and
+  whether this process had started CUDA by the trace's end (it must not:
+  the tensors are meta, and the sweep hides the cards from its cells).
 
 How DTensor's work is seen: the counter returns ``NotImplemented`` for
 an operation on DTensors, so DTensor runs its redistributions and the
@@ -351,7 +356,8 @@ def run_cell(arch: str, shape: str, mesh, verbose: bool = True,
     full = _trace_stats(arch, shape, mesh)
     periods = full.pop("cfg_periods")
     result = {"arch": arch, "shape": shape, "mesh": list(mesh.shape),
-              "ok": True, **full}
+              "ok": True, **full, "mesh_device_type": mesh.device_type,
+              "cuda_initialized": torch.cuda.is_initialized()}
     if with_roofline:
         result["roofline"] = {"flops": full["flops"],
                               "bytes_accessed": full["bytes_accessed"],
@@ -419,8 +425,8 @@ def main(argv=None):
 def _sweep_in_processes(args) -> int:
     """``--sweep``: every cell as ``python -m repro_torch.launch.dryrun
     --arch A --shape S`` in a process of its own (each starts its own fake
-    process group), ``--jobs`` at a time; their results merged into
-    ``--out`` in the sweep's order."""
+    process group), ``--jobs`` at a time, the cards hidden from it; their
+    results merged into ``--out`` in the sweep's order."""
     import os
     import shutil
     import subprocess
@@ -434,6 +440,7 @@ def _sweep_in_processes(args) -> int:
     tmp = tempfile.mkdtemp(prefix="dryrun_sweep_")
     outs = [os.path.join(tmp, f"{a}_{s}.json") for a, s in cells]
     pending = list(zip(cells, outs))
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
     running = []
     while pending or running:
         while pending and len(running) < args.jobs:
@@ -441,7 +448,7 @@ def _sweep_in_processes(args) -> int:
             running.append(subprocess.Popen(
                 [sys.executable, "-m", "repro_torch.launch.dryrun",
                  "--arch", arch, "--shape", shape, "--out", out,
-                 *mesh_flags]))
+                 *mesh_flags], env=env))
         time.sleep(1)
         running = [p for p in running if p.poll() is None]
     results = []

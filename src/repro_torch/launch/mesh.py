@@ -7,6 +7,12 @@ run asks XLA for 512 placeholder host devices, the port's starts a
 one-process ``"fake"`` process group of 512 ranks
 (``init_fake_process_group``): collectives on it move nothing, and a
 ``DeviceMesh`` over it carries DTensors of meta tensors through a trace.
+That mesh has the type of a multi-card run's, ``"cuda"``, because DTensor
+chooses its collectives by the mesh's type: on a ``"cpu"`` mesh it moves a
+shard from one tensor dim to another by gathering the whole dim and
+keeping a chunk, on a ``"cuda"`` mesh by one all-to-all of the shard
+(``_dtensor.shard_dim_alltoall``). Building it touches no card; the
+tensors on it stay meta, so none is made on a card either.
 ``make_local_mesh`` is the 1x1 mesh of one real rank: the card's NCCL, or
 gloo when the CPU is asked for.
 """
@@ -31,20 +37,30 @@ def init_fake_process_group(world_size: int = PRODUCTION_RANKS) -> None:
                             world_size=world_size)
 
 
-def make_production_mesh(*, multi_pod: bool = False):
-    shape = (2, 16, 16) if multi_pod else (16, 16)
-    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+def fake_mesh(shape, axes):
+    """A ``"cuda"``-typed ``DeviceMesh`` of ``shape`` named ``axes`` over
+    this process's ``"fake"`` default group, which must hold at least
+    ``prod(shape)`` ranks: the mesh a card run would have, carrying meta
+    DTensors."""
     n = math.prod(shape)
     world = dist.get_world_size() if dist.is_initialized() else 0
     if world < n:
         raise RuntimeError(
-            f"mesh {shape} needs {n} ranks, found {world}: the dry run must "
-            f"start a fake process group of {PRODUCTION_RANKS} ranks "
-            "(repro_torch.launch.mesh.init_fake_process_group) first")
+            f"mesh {shape} needs {n} ranks, found {world}: start a fake "
+            "process group (repro_torch.launch.mesh.init_fake_process_group)"
+            " first")
     from torch.distributed.device_mesh import DeviceMesh
 
-    return DeviceMesh("cpu", torch.arange(n).reshape(shape),
+    return DeviceMesh("cuda", torch.arange(n).reshape(shape),
                       mesh_dim_names=axes)
+
+
+def make_production_mesh(*, multi_pod: bool = False):
+    """The 16x16 mesh, or 2x16x16 with ``multi_pod``, as ``fake_mesh``
+    over the dry run's fake group of ``PRODUCTION_RANKS`` ranks."""
+    if multi_pod:
+        return fake_mesh((2, 16, 16), ("pod", "data", "model"))
+    return fake_mesh((16, 16), ("data", "model"))
 
 
 def _free_port() -> int:

@@ -34,10 +34,9 @@ def run(code: str, timeout: int) -> str:
 MINI_DRYRUN = r"""
 import dataclasses
 import torch
-from torch.distributed.device_mesh import DeviceMesh
 from repro_torch.configs import get_config, smoke_config
 from repro_torch.launch.dryrun import StepCounter
-from repro_torch.launch.mesh import init_fake_process_group
+from repro_torch.launch.mesh import fake_mesh, init_fake_process_group
 from repro_torch.launch.specs import LoweredSpec, lower_cell
 from repro_torch.models import transformer
 from repro_torch.sharding.logical import rules_for
@@ -46,8 +45,7 @@ from repro_torch.training.optimizer import OptState, adamw_init
 from repro_torch.training.train_loop import make_train_step
 
 init_fake_process_group(8)
-mesh = DeviceMesh("cpu", torch.arange(8).reshape(2, 2, 2),
-                  mesh_dim_names=("pod", "data", "model"))
+mesh = fake_mesh((2, 2, 2), ("pod", "data", "model"))
 cfg = dataclasses.replace(smoke_config(get_config("mixtral_8x22b")),
                           remat=False)
 rules = rules_for(cfg, mesh, "train")
@@ -84,15 +82,13 @@ def test_mini_multipod_dryrun_runs():
 DENSE_CELLS = r"""
 import torch
 from torch.distributed.tensor import DTensor
-from torch.distributed.device_mesh import DeviceMesh
 from repro_torch.configs import SHAPES, ShapeSpec, get_config, smoke_config
 from repro_torch.launch import specs
 from repro_torch.launch.dryrun import StepCounter, local_bytes
-from repro_torch.launch.mesh import init_fake_process_group
+from repro_torch.launch.mesh import fake_mesh, init_fake_process_group
 
 init_fake_process_group(4)
-mesh = DeviceMesh("cpu", torch.arange(4).reshape(2, 2),
-                  mesh_dim_names=("data", "model"))
+mesh = fake_mesh((2, 2), ("data", "model"))
 real = specs.get_config
 specs.get_config = lambda arch: smoke_config(real(arch))
 specs.SHAPES["prefill_32k"] = ShapeSpec("prefill_32k", 64, 4, "prefill")
@@ -120,14 +116,12 @@ def test_dense_smoke_prefill_and_decode_cells():
 
 COLLECTIVES = r"""
 import torch
-from torch.distributed.device_mesh import DeviceMesh
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from repro_torch.launch.dryrun import StepCounter
-from repro_torch.launch.mesh import init_fake_process_group
+from repro_torch.launch.mesh import fake_mesh, init_fake_process_group
 
 init_fake_process_group(4)
-mesh = DeviceMesh("cpu", torch.arange(4).reshape(2, 2),
-                  mesh_dim_names=("data", "model"))
+mesh = fake_mesh((2, 2), ("data", "model"))
 x = DTensor.from_local(torch.empty((2, 16), device="meta"), mesh,
                        (Shard(0), Replicate()), run_check=False)
 p = DTensor.from_local(torch.empty((4, 4), dtype=torch.bfloat16,

@@ -3,15 +3,19 @@
 per-device work (``repro_torch.sharding.logical``, the models).
 
 Each case runs in a subprocess with a fake process group of its own (a
-process group is its process's default group), all started together:
+process group is its process's default group), all started together, the
+cards hidden from it. Its meshes are ``launch.mesh.fake_mesh``'s, typed
+``"cuda"`` as a card run's are, so DTensor launches the collectives it
+would launch on the cards:
 
 - operations DTensor must redistribute their inputs for, on a 2x2 mesh
   (a product of row shards; a product of column shards and an add of a
-  row shard): the counter sees the implicit all-gathers, the transient
-  gathered copies and the local product, to hand-counted bytes and flops,
-  on meta and on CPU tensors; its collective counts are
+  row shard): the counter sees the implicit all-gathers and all-to-alls,
+  the transient gathered copies and the local product, to hand-counted
+  bytes and flops, on meta and on CPU tensors; its collective counts are
   ``CommDebugMode``'s; a second call (the sharding propagator's cache hit)
-  counts what the first did;
+  counts what the first did; a shard moved from one dim to another on one
+  mesh axis is one all-to-all of the local shard, and no all-gather;
   an operation whose sharding DTensor finds by tracing its decomposition
   on global-shape meta tensors counts the same on meta and CPU tensors
   (where those meta tensors could not count) and on either call;
@@ -21,7 +25,9 @@ process group is its process's default group), all started together:
 - on a 2x4 mesh whose model axis does not divide the heads (so attention
   runs sequence-parallel), no weight-gradient product of a small train
   step comes out replicated over the model axis where its weight is split
-  there.
+  there;
+- the production meshes are ``"cuda"``-typed, and a dry-run cell traced
+  on the 16x16 mesh leaves CUDA unstarted.
 """
 import json
 import os
@@ -35,29 +41,37 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PRELUDE = r"""
 import json
 import torch
-from torch.distributed.device_mesh import DeviceMesh
 from torch.distributed.tensor import DTensor, Replicate, Shard
-from repro_torch.launch.mesh import init_fake_process_group
+from torch.distributed.tensor._dtensor_spec import DTensorSpec, TensorMeta
+from torch.distributed.tensor._utils import compute_global_tensor_info
+from repro_torch.launch import mesh as launch_mesh
 
 def fake_mesh(shape, names):
     n = 1
     for s in shape:
         n *= s
-    init_fake_process_group(n)
-    return DeviceMesh("cpu", torch.arange(n).reshape(shape),
-                      mesh_dim_names=names)
+    launch_mesh.init_fake_process_group(n)
+    return launch_mesh.fake_mesh(shape, names)
+
+
+def on_mesh(local, mesh, place):
+    # DTensor.from_local, less its move of a non-meta shard to the mesh's
+    # device type: the CPU cases keep their shards on the host
+    shape, stride = compute_global_tensor_info(local, mesh, place)
+    spec = DTensorSpec(mesh, tuple(place), TensorMeta(
+        torch.Size(shape), tuple(stride), local.dtype))
+    return DTensor(local, spec, requires_grad=local.requires_grad)
 """
 
 IMPLICIT = PRELUDE + r"""
 from torch.distributed.tensor.debug import CommDebugMode
-from repro_torch.launch.dryrun import trace_step
+from repro_torch.launch.dryrun import StepCounter, trace_step
 
 mesh = fake_mesh((2, 2), ("data", "model"))
 out = {}
 for device in ("meta", "cpu"):
     def dt(shape, place):
-        return DTensor.from_local(torch.zeros(shape, device=device), mesh,
-                                  place, run_check=False)
+        return on_mesh(torch.zeros(shape, device=device), mesh, place)
     # d, e: global [8, 8] float32 split by rows over "model": d @ e
     # gathers e's rows
     d = dt((4, 8), (Replicate(), Shard(0)))
@@ -85,6 +99,16 @@ for device in ("meta", "cpu"):
 
     out[device + "_decomposed"] = [trace_step(softplus_step, x)
                                    for _ in range(2)]
+    # a [4, 8] float32 row shard of [8, 8] over "model" moved to a column
+    # shard: the local result is [8, 4]
+    m = dt((4, 8), (Replicate(), Shard(0)))
+    with StepCounter() as counter:
+        moved = m.redistribute(mesh, (Replicate(), Shard(1)))
+    out[device + "_move"] = {
+        "bytes": counter.collective_bytes,
+        "counts": counter.collective_counts,
+        "local_shape": list(moved.to_local().shape),
+        "local_device": moved.to_local().device.type}
 print("RESULT", json.dumps(out))
 """
 
@@ -103,7 +127,9 @@ mesh = fake_mesh((2, 2), ("data", "model"))
 out = {}
 shape = (4, 6, 16, 8)
 axes = ("batch", None, "kv_seq", None)
-zeros = lambda s: torch.zeros(s, dtype=torch.bfloat16)
+# meta: on the "cuda"-typed mesh ``DTensor.from_local`` would move a host
+# shard to a card
+zeros = lambda s: torch.zeros(s, dtype=torch.bfloat16, device="meta")
 out["plain_bytes"] = logical_new(zeros, shape, *axes).untyped_storage(
     ).nbytes()
 rules = dict(TRAIN_RULES, kv_seq=("model",))
@@ -236,13 +262,30 @@ print("RESULT", json.dumps({"grads": grads, "model": model, "weights": sorted(
     {n for names in weights.values() for n in names})}))
 """
 
-CASES = {"implicit": IMPLICIT, "new": NEW, "grads": GRADS}
+CARD_FREE = r"""
+import json
+import torch
+from repro_torch.launch import dryrun
+from repro_torch.launch.mesh import (init_fake_process_group,
+                                     make_production_mesh)
+
+init_fake_process_group()
+types = [make_production_mesh(multi_pod=m).device_type for m in (False, True)]
+cell = dryrun.run_cell("starcoder2_3b", "decode_32k", make_production_mesh(),
+                       verbose=False, with_roofline=False)
+print("RESULT", json.dumps({"types": types, "cell": cell,
+                            "cuda": torch.cuda.is_initialized()}))
+"""
+
+CASES = {"implicit": IMPLICIT, "new": NEW, "grads": GRADS,
+         "card_free": CARD_FREE}
 
 
 @pytest.fixture(scope="module")
 def results():
     """Each case's subprocess, all started together; its RESULT line."""
-    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+               CUDA_VISIBLE_DEVICES="")
     procs = {name: subprocess.Popen([sys.executable, "-c", code], env=env,
                                     cwd=ROOT, text=True,
                                     stdout=subprocess.PIPE,
@@ -279,12 +322,14 @@ ROWS = {"flops": 2 * 4 * 8 * 8,
         "bytes_accessed": 384 + 512}
 # a @ b + c: a's column shard all-gathered (a [16, 4] result, 256 B) for
 # the local product [8, 8] @ [8, 4]; the product moved from column to row
-# shards for the add, on the dry run's CPU mesh by another all-gather (256
-# B). How DTensor stages that move (its copies, so the peak) differs
-# between torch releases; its collectives and flops do not.
+# shards for the add, on the card-typed mesh by one all-to-all of the
+# local shard (a [4, 8] result, 128 B). How DTensor stages that move (its
+# copies, so the peak) differs between torch releases; its collectives and
+# flops do not.
 COLUMNS = {"flops": 2 * 8 * 8 * 4,
-           "collective_bytes": {"all-gather": 2 * 16 * 4 * 4},
-           "collective_counts": {"all-gather": 2},
+           "collective_bytes": {"all-gather": 16 * 4 * 4,
+                                "all-to-all": 4 * 8 * 4},
+           "collective_counts": {"all-gather": 1, "all-to-all": 1},
            "argument_bytes": 3 * 128,
            "output_bytes": 128}
 SAME = ("flops", "peak_bytes", "temp_bytes", "bytes_accessed",
@@ -317,13 +362,33 @@ def test_collective_counts_equal_comm_debug_mode(results, device, case):
     comm = results["implicit"][f"{device}_{case}_comm"]
     kinds = {"all_gather_into_tensor": "all-gather",
              "reduce_scatter_tensor": "reduce-scatter",
-             "all_reduce": "all-reduce"}
+             "all_reduce": "all-reduce",
+             "shard_dim_alltoall": "all-to-all"}
     counted = {}
     for op, n in comm.items():
         kind = next(v for k, v in kinds.items() if op.endswith(k))
         counted[kind] = counted.get(kind, 0) + n
     assert counted == results["implicit"][f"{device}_{case}"][0][
         "collective_counts"]
+
+
+@pytest.mark.parametrize("device", ["meta", "cpu"])
+def test_shard_to_shard_move_is_one_all_to_all_of_the_shard(results,
+                                                            device):
+    r = results["implicit"][device + "_move"]
+    assert r["counts"] == {"all-to-all": 1}, r
+    assert r["bytes"] == {"all-to-all": 4 * 8 * 4}, r     # the local shard
+    assert r["local_shape"] == [8, 4] and r["local_device"] == device, r
+
+
+def test_dry_run_mesh_is_card_typed_and_leaves_cuda_unstarted(results):
+    r = results["card_free"]
+    assert r["types"] == ["cuda", "cuda"], r["types"]
+    cell = r["cell"]
+    assert cell["ok"] and cell["mesh"] == [16, 16], cell
+    assert cell["mesh_device_type"] == "cuda", cell
+    assert cell["cuda_initialized"] is False and r["cuda"] is False, r
+    assert cell["flops"] > 0 and cell["peak_bytes"] > 0, cell
 
 
 def test_logical_new_holds_only_the_shard(results):

@@ -154,10 +154,9 @@ print("MEMORY_OK", json.dumps({k: stats[k] for k in (
 MOE_TRAIN = r"""
 import dataclasses
 import torch
-from torch.distributed.device_mesh import DeviceMesh
 from repro_torch.configs import get_config, smoke_config
 from repro_torch.launch.dryrun import StepCounter, trace_step
-from repro_torch.launch.mesh import init_fake_process_group
+from repro_torch.launch.mesh import fake_mesh, init_fake_process_group
 from repro_torch.launch.specs import LoweredSpec, distributed_args, lower_cell
 from repro_torch.models import transformer
 from repro_torch.sharding.logical import rules_for
@@ -166,8 +165,7 @@ from repro_torch.training.optimizer import OptState, adamw_init
 from repro_torch.training.train_loop import make_train_step
 
 init_fake_process_group(8)
-mesh = DeviceMesh("cpu", torch.arange(8).reshape(2, 2, 2),
-                  mesh_dim_names=("pod", "data", "model"))
+mesh = fake_mesh((2, 2, 2), ("pod", "data", "model"))
 cfg = dataclasses.replace(smoke_config(get_config("mixtral_8x22b")),
                           remat=False)
 rules = rules_for(cfg, mesh, "train")
@@ -190,15 +188,13 @@ stats = trace_step(lambda *a: lower_cell(cell, mesh, a),
 
 DENSE = r"""
 import torch
-from torch.distributed.device_mesh import DeviceMesh
 from repro_torch.configs import ShapeSpec, smoke_config
 from repro_torch.launch import specs
 from repro_torch.launch.dryrun import StepCounter, trace_step
-from repro_torch.launch.mesh import init_fake_process_group
+from repro_torch.launch.mesh import fake_mesh, init_fake_process_group
 
 init_fake_process_group(4)
-mesh = DeviceMesh("cpu", torch.arange(4).reshape(2, 2),
-                  mesh_dim_names=("data", "model"))
+mesh = fake_mesh((2, 2), ("data", "model"))
 real = specs.get_config
 specs.get_config = lambda arch: smoke_config(real(arch))
 specs.SHAPES["__SHAPE__"] = ShapeSpec("__SHAPE__", 64, 4, "__KIND__")

@@ -15,7 +15,11 @@ start together.
 - one period's flops, the 2-period count less the 1-period count (XLA
   counts a loop body once; both lower the periods unrolled here), agree
   within 1.3x: the port computes each product on its own shards, as the
-  reference's partitioner does.
+  reference's partitioner does;
+- one period's collective bytes, all kinds together, are within 2x of
+  the reference's: the port's mesh is typed as a card run's, so DTensor
+  moves a shard between dims by an all-to-all of the shard, not by
+  gathering the whole dim.
 
 ``python tests/test_torch_dryrun_reference.py`` prints both sides' numbers
 at each depth and per period, as one JSON line.
@@ -118,6 +122,15 @@ def test_flops_of_one_period_within_1_3x_of_the_reference(sides):
 
     ratio = period("port") / period("reference")
     assert 1 / 1.3 <= ratio <= 1.3, (ratio, sides)
+
+
+def test_collective_bytes_of_one_period_within_2x_of_the_reference(sides):
+    def period(side):
+        return sum(sides[side][2]["collective_bytes"].values()) \
+            - sum(sides[side][1]["collective_bytes"].values())
+
+    ratio = period("port") / period("reference")
+    assert 1 / 2 <= ratio <= 2, (ratio, sides)
 
 
 if __name__ == "__main__":
