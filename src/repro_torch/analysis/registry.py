@@ -86,6 +86,9 @@ ALLOWLIST: Tuple[Exemption, ...] = (
               "training throughput measurement (tokens/sec)"),
     Exemption("wallclock", "repro_torch.analysis.__main__", "main",
               "the analyzer reports its own wall time; not sim semantics"),
+    Exemption("wallclock", "repro_torch.obs.tracer", "Tracer",
+              "a wall tracer stamps its events for the card's trace; no "
+              "sim decision reads the stamps"),
     # epoch-discipline: the one mutation site whose bump lives in callers
     Exemption("epoch", "repro_torch.core.scheduler", "split_batch",
               "both call sites (Executor.start_next_batch, decode admit) "

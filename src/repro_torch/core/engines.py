@@ -19,6 +19,7 @@ engine-independent.
 """
 from __future__ import annotations
 
+import contextlib
 import os
 import queue
 import threading
@@ -31,8 +32,10 @@ import torch
 from repro_torch.core.coe import CoEModel, Request
 from repro_torch.kernels.ops import decode_attention_op
 from repro_torch.memory import MemoryHierarchy, TierSpec
+from repro_torch.obs import NULL_TRACER, tracer as obs_tracer
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+_UNTRACED = contextlib.nullcontext()     # an untraced ``apply``'s scope
 _BF16_SUFFIX = "@bfloat16"     # disk-tier name of a bfloat16 tensor's bits
 
 
@@ -294,6 +297,13 @@ class RealEngine:
     completed. ``measured_load_time`` accumulates the wall time the workers
     actually spent moving timed (post-init) loads; it is surfaced in
     ``Metrics.memory['real_measured_load_s']``.
+
+    With the executor's tracer on the wall clock, ``execute``, ``load``'s
+    transfer and ``wait_load`` record their spans (``repro_torch.obs``),
+    and the apply function's model forward records its own under the
+    ``apply`` span. Those spans carry what a counter would: each ``exec``
+    its rows and ``bucket_pad``'s padded rows, each ``load_wait`` whether
+    its transfer had ``landed`` before the wait.
     """
 
     def __init__(self, coe: CoEModel, store: HostStore,
@@ -371,10 +381,17 @@ class RealEngine:
         return prof.exec_latency(n)
 
     # ------------------------------------------------------------------ #
-    def _transfer(self, expert_id: str, stream=None, timed: bool = True):
+    def _transfer(self, expert_id: str, stream=None, timed: bool = True,
+                  tracer=NULL_TRACER, channel: str = "",
+                  parent: Optional[int] = None):
         """Fetch the params and copy them to the device on ``stream`` (the
         channel's own, or the caller's current one): non-blocking copies
-        from pinned host tensors, then a wait on that stream only."""
+        from pinned host tensors, then a wait on that stream only. On a
+        wall tracer, a ``transfer`` span under the load's span
+        ``parent``."""
+        span = tracer.open("host", channel, "transfer", parent,
+                           expert=expert_id, timed=timed) \
+            if tracer.wall else None
         t0 = time.perf_counter()
         host_params, _ = self.store.fetch(expert_id)
         if stream is None:
@@ -395,6 +412,9 @@ class RealEngine:
             self.device_params[expert_id] = dev
             if timed:
                 self.measured_load_time += time.perf_counter() - t0
+        if span is not None:
+            tracer.close(span, bytes=sum(t.numel() * t.element_size()
+                                         for t in dev.values()))
 
     def load(self, ex, expert_id: str, now: float = 0.0) -> float:
         if self._host_exec_hit(ex, expert_id):
@@ -403,9 +423,16 @@ class RealEngine:
             with self._lock:
                 self.device_params[expert_id] = self.store.host[expert_id]
             return 0.0
-        worker = self._worker_for(self._channel_name(ex, expert_id))
-        handle = worker.submit(
-            lambda stream: self._transfer(expert_id, stream))
+        channel = self._channel_name(ex, expert_id)
+        worker = self._worker_for(channel)
+        tracer = getattr(ex, "tracer", NULL_TRACER)
+        # wall clock: the executor's open ``load`` span is the transfer's
+        # parent
+        load_span = tracer.current().id if tracer.wall else None
+        handle = worker.submit(lambda stream: self._transfer(
+            expert_id, stream, tracer=tracer, channel=channel,
+            parent=load_span))
+        handle["load"] = load_span
         with self._lock:
             self._pending[expert_id] = handle
         return self.load_latency(ex, expert_id)
@@ -414,8 +441,15 @@ class RealEngine:
         """Block until the queued transfer landed (executor ``finish_load``)."""
         with self._lock:
             handle = self._pending.pop(expert_id, None)
-        if handle is not None:
-            _TransferWorker.wait(handle)
+        if handle is None:
+            return
+        tracer = getattr(ex, "tracer", NULL_TRACER)
+        span = tracer.open("host", ex.id, "load_wait", expert=expert_id,
+                           landed=handle["event"].is_set(),
+                           load=handle["load"]) if tracer.wall else None
+        _TransferWorker.wait(handle)
+        if span is not None:
+            tracer.close(span)
 
     def unload(self, ex, expert_id: str) -> None:
         self.wait_load(ex, expert_id)    # never drop a half-landed transfer
@@ -460,18 +494,43 @@ class RealEngine:
         spec = self.coe.spec(expert_id)
         payload = spec.payload or {}
         t0 = time.perf_counter()
+        # wall clock: the spans below sit under the executor's ``exec``
+        tracer = getattr(ex, "tracer", NULL_TRACER)
+        wall = tracer.wall
         params = self.device_params[expert_id]
         make_batch = payload["make_batch"]
         interpret = payload.get("interpret", lambda o: list(o))
+        if wall:
+            span = tracer.open("host", ex.id, "batch")
         x = make_batch(batch)
         n = x.shape[0]
         x = bucket_pad(x)
         # the batch goes where the params are: the device, or host DRAM for
         # a host co-executed expert
         where = next(iter(params.values())).device
-        with torch.no_grad():
-            out = self.apply_fns[spec.arch](params,
-                                            torch.from_numpy(x).to(where))
+        tokens = torch.from_numpy(x).to(where)
+        if wall:
+            padded = x.shape[0] - n
+            tracer.close(span, rows=n, padded=padded,
+                         seq=x.shape[1] if x.ndim > 1 else 1)
+            outer = tracer.current()          # the executor's ``exec``
+            if outer is not None:
+                outer.attrs.update(rows=n, padded=padded)
+            span = tracer.open("host", ex.id, "apply")
+        # the model layer records into the tracer made current here
+        scope = obs_tracer.activated(tracer) if wall else _UNTRACED
+        with torch.no_grad(), scope:
+            out = self.apply_fns[spec.arch](params, tokens)
+        if wall:
+            tracer.close(span)
+            span = tracer.open("host", ex.id, "fetch_out")
         out = out.cpu().numpy()                # waits for the device
         lat = time.perf_counter() - t0
-        return interpret(out[:n]), lat
+        if wall:
+            tracer.close(span, bytes=out.nbytes)
+            tracer.read_device_times()
+            span = tracer.open("host", ex.id, "interpret")
+        outputs = interpret(out[:n])
+        if wall:
+            tracer.close(span)
+        return outputs, lat

@@ -233,6 +233,11 @@ class Executor:
             # kv_aware: idle requests' KV blocks yield device bytes to the
             # incoming expert before any weight eviction is considered
             self.decode.expert_load_pressure(self, expert_id, now)
+        # wall clock: opened before the timer starts, so that the span's
+        # own cost stays out of mgmt_time
+        decide = self.tracer.open("host", self.id, "evict_decide",
+                                  expert=expert_id) \
+            if self.tracer.wall else None
         t0 = _time.perf_counter()
         protected: Set[str] = set()
         if self.protect_queued or strict:
@@ -257,6 +262,8 @@ class Executor:
             self.pool, expert_id, load_cost_fn=cost_fn,
             protected=protected, strict=strict)
         self.stats.mgmt_time += _time.perf_counter() - t0
+        if decide is not None:
+            self.tracer.close(decide)
         if victims is None:
             if not self.pool.fits(expert_id):
                 raise MemoryError(
@@ -273,8 +280,14 @@ class Executor:
             # same precedence begin_device_load re-resolves: peer > host > disk
             via = self._load_source(expert_id)
         self.pool.add(expert_id)
+        # wall clock: the load's span is its submission (the engine's
+        # ``load``); the transfer thread's work names it as its parent
+        span = tracer.open("load", self.id, expert_id) if tracer.wall \
+            else None
         # sim: contended channel latency; real: queued on the transfer thread
         lat = self.engine.load(self, expert_id, now)
+        if span is not None:
+            tracer.close(span)
         self.pool.loading[expert_id] = now + lat
         self.load_in_flight = (expert_id, now + lat)
         self.stats.switches += 1
@@ -282,7 +295,7 @@ class Executor:
         if demand:
             self.stats.stall_time += lat
         if tracer.enabled:
-            tracer.emit(now, "load", self.id, expert_id, dur=lat,
+            tracer.emit(now, "load", self.id, expert_id, dur=lat, span=span,
                         demand=demand, via=via, pool=self.pool.group,
                         bytes=self.coe.spec(expert_id).mem_bytes)
         return now + lat
@@ -327,7 +340,12 @@ class Executor:
             self.queue.pop(0)
         else:
             bump_queue(self.queue)   # head group shrank in place
+        # wall clock: the whole of the engine's execution
+        span = self.tracer.open("exec", self.id, eid) if self.tracer.wall \
+            else None
         outputs, lat = self.engine.execute(self, eid, batch)
+        if span is not None:
+            self.tracer.close(span)
         self.pool.pin(eid)
         self.pool.touch(eid)
         self.current = (eid, batch, outputs)
@@ -335,7 +353,7 @@ class Executor:
         self.stats.busy_time += lat
         if self.tracer.full:
             on = "host" if self.device in ("host", "cpu") else "device"
-            self.tracer.emit(now, "exec", self.id, eid, dur=lat,
+            self.tracer.emit(now, "exec", self.id, eid, dur=lat, span=span,
                              requests=[r.id for r in batch], n=len(batch),
                              on=on)
         if self.hierarchy is not None:

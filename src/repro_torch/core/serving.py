@@ -245,15 +245,21 @@ class CoServeSystem:
         return sum(e.queued_requests() for e in self.live_executors())
 
     def assign(self, req: Request, now: float) -> Executor:
+        span = self.tracer.open("assign", "scheduler", req.expert_id,
+                                hold=True) \
+            if self.tracer.wall else None
         t0 = time.perf_counter()
         ex = self.scheduler.assign(req, now)
         self.sched_time += time.perf_counter() - t0
+        if span is not None:
+            self.tracer.close(span)
         self.expert_load[req.expert_id] = \
             self.expert_load.get(req.expert_id, 0) + 1
         if self.tracer.full:
             # queue-arrival record: timeline reconstruction joins this with
             # exec batch membership to recover per-stage queue waits
             self.tracer.emit(now, "assign", "scheduler", req.expert_id,
+                             span=span,
                              request=req.id, executor=ex.id,
                              tenant=req.tenant, parent=req.parent_id)
         # queue-arrival prefetch trigger: the request's expert just joined a

@@ -102,8 +102,11 @@ class Simulation:
     # ------------------------------------------------------------------ #
     def run(self) -> Metrics:
         sys = self.system
+        tracer = sys.tracer
         t0 = time.perf_counter()
         n_events = 0
+        # wall clock: the loop's span, the root of this run's tree
+        span = tracer.open("host", "loop", "run") if tracer.wall else None
         while self.heap:
             t, _, kind, payload = heapq.heappop(self.heap)
             self.now = t
@@ -142,6 +145,9 @@ class Simulation:
                     continue
                 eid, batch, outputs = ex.finish_batch(t)
                 for i, req in enumerate(batch):
+                    done = tracer.open("host", "loop", "complete",
+                                       request=req.id) if tracer.wall \
+                        else None
                     out = outputs[i] if outputs else None
                     if self.on_stage is not None:
                         self.on_stage(self, req, eid, t)
@@ -159,6 +165,8 @@ class Simulation:
                     else:
                         follow.arrival_time = t
                         self.push(t, ARRIVAL, follow)
+                    if done is not None:
+                        tracer.close(done)
                 self.kick(ex, t)
                 # a finished batch unpins its expert: pool-sharing peers whose
                 # pending load was blocked on that pin can now proceed
@@ -190,6 +198,8 @@ class Simulation:
                         self.kick(peer, t)
             else:  # INJECT
                 payload(self)
+        if span is not None:
+            tracer.close(span, events=n_events)
         makespan = max((r.done_time or 0.0) for r in self.completed) \
             if self.completed else 0.0
         m = sys.collect_metrics(self.completed, makespan)

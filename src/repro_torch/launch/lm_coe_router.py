@@ -57,6 +57,7 @@ from repro_torch.core.engines import (HostStore, RealEngine, resolve_device,
                                       synchronize)
 from repro_torch.models import transformer
 from repro_torch.models.config import ModelConfig
+from repro_torch.obs import Tracer
 
 ARCHS = ("starcoder2_3b", "falcon_mamba_7b", "moonshot_v1_16b_a3b")
 # full width keeps these experts' weights in bfloat16, the dtype they
@@ -128,8 +129,10 @@ def expert_ids() -> List[str]:
 
 def build_lm_system(cfg: ModelConfig, policy=COSERVE, *, device="cuda",
                     params: Optional[Dict[str, Dict[str, torch.Tensor]]] = None,
-                    store: Optional[HostStore] = None):
-    """The LM CoE served under ``policy`` on ``device``: (system, coe).
+                    store: Optional[HostStore] = None,
+                    tracer: Optional[Tracer] = None):
+    """The LM CoE served under ``policy`` on ``device``: (system, coe),
+    recording into ``tracer`` where given.
 
     ``params`` (expert id -> flat tensor dict, e.g. converted from the JAX
     package's) replaces the seeded weights of the experts it names.
@@ -188,7 +191,7 @@ def build_lm_system(cfg: ModelConfig, policy=COSERVE, *, device="cuda",
     system = CoServeSystem(
         coe, [ExecutorSpec("gpu", dev_prof, 2 * mem, "gpu")] * 2,
         {"gpu": 3 * mem},                      # pool: 3 of 7 LM experts fit
-        policy=policy, tier=tier,
+        policy=policy, tier=tier, tracer=tracer,
         engine=RealEngine(coe, store, {"tiny_lm": lm_apply}, device=dev))
     return system, coe
 

@@ -25,6 +25,7 @@ from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.kvcache import init_cache
+from repro_torch.obs import tracer as obs_tracer
 from repro_torch.sharding.logical import local_region
 
 
@@ -190,7 +191,31 @@ def forward(params, tokens, cfg: ModelConfig, positions=None,
     rematerialised (``torch.utils.checkpoint``, non-reentrant), as the
     reference checkpoints its period body: the backward keeps only each
     period's input and recomputes the rest. The stacked parameters are
-    unbound once per call (``layers.unstack``)."""
+    unbound once per call (``layers.unstack``).
+
+    Inside a real engine's traced ``apply`` (``obs.tracer.active()`` on the
+    wall clock), the call records a ``forward`` span from entry to return
+    and, on a card, a CUDA event pair around its launches on the current
+    stream (the span's ``device_us``, read after a later synchronisation)."""
+    tracer = obs_tracer.active()
+    if not tracer.wall:
+        return _forward(params, tokens, cfg, positions, input_embeds, mode)
+    lead = tokens if tokens is not None else input_embeds
+    with tracer.span("host", "model", "forward",
+                     tokens=int(lead.shape[0] * lead.shape[1])) as span:
+        timed = lead.is_cuda
+        if timed:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+        out = _forward(params, tokens, cfg, positions, input_embeds, mode)
+        if timed:
+            end.record()
+            tracer.defer(span, start, end)
+    return out
+
+
+def _forward(params, tokens, cfg, positions, input_embeds, mode):
     check_ported(cfg)
     cdtype = L.torch_dtype(cfg.compute_dtype)
     x = _embed_input(params, tokens, input_embeds, cdtype)

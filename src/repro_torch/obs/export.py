@@ -19,6 +19,10 @@ The output is the Chrome trace-event JSON object format
   pid 3 "control"    scheduler / gateway / autoscaler decision instants.
 
 Timestamps are sim-seconds scaled to microseconds (the format's unit).
+Events of a wall-clock trace (``Tracer(..., wall=True)``) are written on
+the wall clock instead (``wall_chrome_trace``): microseconds on
+``time.time_ns``'s base, the one ``torch.profiler``'s device timestamps
+carry, so the program's spans load in Perfetto beside the card's trace.
 ``otherData`` embeds the run's ``Metrics`` aggregates and the tracer's
 drop count so ``tools/trace_report.py`` can reconcile the events against
 the metrics without a second input file.
@@ -33,6 +37,7 @@ from repro_torch.obs.tracer import Event, Tracer
 PID_EXECUTORS = 1
 PID_CHANNELS = 2
 PID_CONTROL = 3
+PID_WALL = 4
 _PROCESS_NAMES = {PID_EXECUTORS: "executors", PID_CHANNELS: "channels",
                   PID_CONTROL: "control"}
 _CONTROL_ACTORS = ("scheduler", "gateway", "autoscaler")
@@ -59,8 +64,11 @@ def _track_map(events: Iterable[Event]) -> Dict[int, List[str]]:
 
 def chrome_trace(events: Iterable[Event],
                  metadata: Optional[dict] = None) -> dict:
-    """Render events as a Chrome trace-event JSON object."""
+    """Render events as a Chrome trace-event JSON object (on the wall
+    clock where they carry it)."""
     events = list(events)
+    if events and events[0].wall_ns is not None:
+        return wall_chrome_trace(events, metadata)
     tracks = _track_map(events)
     tids: Dict[int, Dict[str, int]] = {
         pid: {name: i + 1 for i, name in enumerate(names)}
@@ -109,6 +117,35 @@ def chrome_trace(events: Iterable[Event],
                         "name": f"{e.kind}:{e.name}", "ts": _us(e.t),
                         "args": args})
 
+    return {"traceEvents": out, "displayTimeUnit": "ms",
+            "otherData": metadata or {}}
+
+
+def wall_chrome_trace(events: Iterable[Event],
+                      metadata: Optional[dict] = None) -> dict:
+    """A wall-clock trace's events as one process, ``program``, one thread
+    per actor (the loop, each executor, each transfer channel, the model):
+    spans as complete slices, which Perfetto nests by time, and instants,
+    at ``wall_ns`` in microseconds; the sim-time fields, ``id`` and the
+    enclosing span's id, ``span_parent``, in ``args`` (beside the attrs,
+    whose ``parent`` is an ``assign``'s request parent)."""
+    events = list(events)
+    tids = {a: i + 1 for i, a in enumerate(sorted({e.actor for e in events}))}
+    out: List[dict] = [{"ph": "M", "pid": PID_WALL, "tid": 0,
+                        "name": "process_name", "args": {"name": "program"}}]
+    out += [{"ph": "M", "pid": PID_WALL, "tid": tid, "name": "thread_name",
+             "args": {"name": actor}} for actor, tid in tids.items()]
+    for e in events:
+        args = dict(e.attrs, t=e.t, dur=e.dur, id=e.id,
+                    span_parent=e.parent)
+        rec = {"pid": PID_WALL, "tid": tids[e.actor], "cat": e.kind,
+               "name": e.name if e.kind == "host" else f"{e.kind}:{e.name}",
+               "ts": e.wall_ns / 1e3, "args": args}
+        if e.wall_dur_ns:
+            rec.update(ph="X", dur=e.wall_dur_ns / 1e3)
+        else:
+            rec.update(ph="i", s="t")
+        out.append(rec)
     return {"traceEvents": out, "displayTimeUnit": "ms",
             "otherData": metadata or {}}
 

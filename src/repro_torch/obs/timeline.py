@@ -31,6 +31,17 @@ chain's stage totals sum to its end-to-end latency. Reconciliation against
 ``Metrics`` (pinned by tests): terminal-stage totals average to
 ``Metrics.avg_latency`` for offline runs, whose latency anchor is
 per-stage (see ``CoServeSystem.route_followup``).
+
+On a wall-clock trace (``Tracer(..., wall=True)``, the port's real engine),
+``stage_records(events, clock="wall")`` makes the same split on the wall
+clock, in whole nanoseconds, so it sums exactly: arrival is the
+``assign`` span's start, the stage runs over the ``exec`` span (the
+engine's whole execution), and the load wait is the ``host/load_wait``
+spans of the stage's executor and expert inside its queue time, split by
+the ``via`` of the ``load`` each waited on. ``self_times`` and
+``idle_by_span`` read the same spans: each span's time outside its
+children, and the card's idle gaps put down to the innermost span at their
+middle.
 """
 from __future__ import annotations
 
@@ -69,8 +80,14 @@ def _clip(lo: float, hi: float, a: float, b: float) -> float:
     return max(0.0, min(hi, b) - max(lo, a))
 
 
-def stage_records(events: Iterable[Event]) -> List[Stage]:
-    """Join assign / exec / demand-load events into per-stage records."""
+def stage_records(events: Iterable[Event],
+                  clock: str = "sim") -> List[Stage]:
+    """Join assign / exec / demand-load events into per-stage records
+    (``clock="wall"``: on the wall clock, in whole nanoseconds)."""
+    if clock == "wall":
+        events = _on_wall_clock(events)
+    elif clock != "sim":
+        raise ValueError(f"clock must be 'sim' or 'wall', got {clock!r}")
     assigns: Dict[int, List[dict]] = {}
     parents: Dict[int, Optional[int]] = {}
     loads: Dict[tuple, List[tuple]] = {}     # (executor, expert) -> intervals
@@ -117,6 +134,86 @@ def stage_records(events: Iterable[Event]) -> List[Stage]:
                 switch_load_wait=switch, peer_copy_wait=peer,
                 exec=ev.dur, terminal=rid not in has_child))
     return stages
+
+
+def _on_wall_clock(events: Iterable[Event]) -> List[Event]:
+    """The events ``stage_records`` joins, timed on the wall clock in
+    nanoseconds: the ``assign`` and ``exec`` spans, and each
+    ``host/load_wait`` span as a demand load of its executor and expert,
+    with the ``via`` of the load it waited on."""
+    events = [e for e in events if e.wall_ns is not None]
+    via = {e.id: e.attrs.get("via", "disk") for e in events
+           if e.kind == "load"}
+    out = []
+    for e in events:
+        if e.kind in ("assign", "exec"):
+            out.append(dataclasses.replace(e, t=e.wall_ns, dur=e.wall_dur_ns))
+        elif e.kind == "host" and e.name == "load_wait":
+            out.append(Event(e.wall_ns, "load", e.actor, e.attrs["expert"],
+                             e.wall_dur_ns,
+                             {"demand": True,
+                              "via": via.get(e.attrs["load"], "disk")}))
+    return out
+
+
+# spans on a thread other than their parent's: they overlap the serving
+# thread's work instead of taking part of it
+_OTHER_THREAD = ("transfer",)
+
+
+def _label(e: Event) -> str:
+    return e.name if e.kind == "host" else e.kind
+
+
+def _serving_spans(events: Iterable[Event]) -> List[Event]:
+    return [e for e in events if e.wall_ns is not None and e.wall_dur_ns
+            and e.name not in _OTHER_THREAD]
+
+
+def self_times(events: Iterable[Event]) -> Dict[str, int]:
+    """Wall nanoseconds of the serving thread's spans (``host`` spans by
+    name, others by kind) outside their child spans, summed over the
+    trace."""
+    spans = _serving_spans(events)
+    out: Dict[str, int] = {}
+    for e in spans:
+        out[_label(e)] = out.get(_label(e), 0) + e.wall_dur_ns
+    ids = {e.id: e for e in spans}
+    for e in spans:
+        up = ids.get(e.parent)
+        if up is not None:
+            out[_label(up)] -= e.wall_dur_ns
+    return out
+
+
+def idle_by_span(events: Iterable[Event], busy: List[tuple], start: int,
+                 end: int) -> Dict[str, int]:
+    """The gaps in ``[start, end)`` between the sorted, disjoint ``busy``
+    intervals (the card's kernels, ns on the wall clock's base), in
+    nanoseconds by the innermost span open at each gap's middle, or
+    ``"outside"`` where none is. Only the serving thread's spans, which
+    nest, name a gap: a transfer thread's span does not, as the host is
+    not waiting in it."""
+    spans = sorted(_serving_spans(events),
+                   key=lambda e: (e.wall_ns, -e.wall_dur_ns))
+    bounds = [start] + [x for iv in busy for x in iv] + [end]
+    out: Dict[str, int] = {}
+    stack: List[Event] = []
+    i = 0
+    for gs, ge in zip(bounds[::2], bounds[1::2]):
+        if ge <= gs:
+            continue
+        mid = (gs + ge) // 2
+        while i < len(spans) and spans[i].wall_ns <= mid:
+            while stack and stack[-1].wall_end_ns <= spans[i].wall_ns:
+                stack.pop()
+            stack.append(spans[i])
+            i += 1
+        while stack and stack[-1].wall_end_ns <= mid:
+            stack.pop()
+        label = _label(stack[-1]) if stack else "outside"
+        out[label] = out.get(label, 0) + (ge - gs)
+    return out
 
 
 def decode_spans(events: Iterable[Event]) -> Dict[int, dict]:
