@@ -34,6 +34,13 @@ Phases, each of which ends the run with a nonzero exit when it fails:
    timings and SDPA as the yardstick; where both bf16 kernels take the
    shape, each is held against the plain version and the two are timed in
    turns;
+7b. the norm and RoPE kernels (no TPU counterpart): ``add_norm`` and
+   ``rope`` against their plain chains at the benchmark cells' shapes,
+   each timed alone (graph replay and issued from Python) beside its byte
+   bound, the plain chain and ``F.layer_norm`` / ``F.rms_norm``; phases
+   8, 9, 11-15 count their launches on the main paths (a norm before each
+   mixer and each feed-forward and a final one, a RoPE each attention
+   layer, every forward), and the kernels JSON sums those counts;
 8. the transformer at StarCoder2-3B's full width: (a) 2 layers in float32,
    the kernels' path against the plain-torch path and greedy generation
    against teacher forcing; (b) all 30 layers with bf16 weights, a
@@ -178,6 +185,9 @@ FLASH_SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
 FLASH_REPLACES = "src/repro/kernels/flash_attention.py:84"
 MAMBA_SOURCE = "src/repro_torch/kernels/csrc/mamba_scan.cu"
 MAMBA_REPLACES = "src/repro/kernels/mamba_scan.py:63"
+ADD_NORM_SOURCE = "src/repro_torch/kernels/csrc/add_norm.cu"
+ROPE_SOURCE = "src/repro_torch/kernels/csrc/rope.cu"
+NO_TPU_KERNEL = "none: XLA fuses the chain on the TPU"
 # the exponentials' own rate on the SFUs, beside the bound: 16 a clock per
 # SM (CUDA C++ Programming Guide, arithmetic instruction throughput,
 # compute capability 9.0), 132 SMs, the H100 SXM's 1.98 GHz boost clock
@@ -529,13 +539,15 @@ def build_all():
     """Phase 2: one nvcc per kernel source, all started together."""
     from concurrent.futures import ThreadPoolExecutor
 
+    from repro_torch.kernels import add_norm as an
     from repro_torch.kernels import build
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import mamba_scan as ms
+    from repro_torch.kernels import rope as rp
 
     t0 = time.perf_counter()
-    sources = (da.SOURCE, fa.SOURCE, ms.SOURCE)
+    sources = (da.SOURCE, fa.SOURCE, ms.SOURCE, an.SOURCE, rp.SOURCE)
     with ThreadPoolExecutor(max_workers=len(sources)) as pool:
         libs = list(pool.map(build.build_library, sources))
     print(f"built {', '.join(os.path.relpath(p, ROOT) for p in libs)} in "
@@ -698,6 +710,163 @@ def flash_vs_plain(fa, ref):
         del sets, got, want
         torch.cuda.empty_cache()
     return lines
+
+
+def ulp_check(got, want) -> tuple:
+    """(the widest gap between two tensors of one dtype in units in the
+    last place, the values more than one unit off and further than 1e-6 of
+    their row's RMS): two float32 sums of a row in two orders move a result
+    near zero (a cancellation) by more than its own last place."""
+    bits = {BF16: (torch.int16, 0x7FFF), F32: (torch.int32, 0x7FFFFFFF)}
+    kind, mask = bits[got.dtype]
+
+    def place(t):
+        i = t.contiguous().view(kind).long()
+        return torch.where(i < 0, -(i & mask), i & mask)
+
+    ulps = (place(got) - place(want)).abs()
+    rms = want.float().pow(2).mean(-1, keepdim=True).sqrt()
+    off = (ulps > 1) & ((got.float() - want.float()).abs() > 1e-6 * rms)
+    return int(ulps.max()), int(off.sum())
+
+
+# (label, shape, norm type, with delta): the cells' forwards, 8 prompts of
+# 128 tokens: StarCoder2-3B's second LayerNorm (after the attention's
+# residual) and Falcon-Mamba-7B's RMSNorm; then a batch of one
+NORM_GEOMETRIES = [
+    ("starcoder2-3b layernorm + residual", (8, 128, 3072), "layernorm",
+     True),
+    ("falcon-mamba-7b rmsnorm", (8, 128, 4096), "rmsnorm", False),
+    ("starcoder2-3b layernorm, batch 1", (1, 128, 3072), "layernorm", False),
+]
+# (label, batch, seq, query heads, kv heads, head dim, first position)
+ROPE_GEOMETRIES = [
+    ("starcoder2-3b q and k", 8, 128, 24, 2, 128, 0),
+    ("starcoder2-3b decode step", 8, 1, 24, 2, 128, 4095),
+]
+ROPE_THETA = 999999.4420358813        # StarCoder2-3B's
+
+
+def norm_rope_vs_plain(an, rp, ref) -> tuple:
+    """Phase 7b: the norm and RoPE kernels (no TPU counterpart) at the
+    benchmark cells' shapes in bf16, each against its plain chain (the
+    widest gap in bf16 units in the last place), timed alone (a CUDA graph's
+    replay: device time; and issued from Python: the host's cost counts)
+    beside its byte bound and the plain chain timed both ways, with
+    ``F.layer_norm`` / ``F.rms_norm`` as a library yardstick (the port
+    never calls them). Returns (norm lines, rope lines)."""
+    import torch.nn.functional as F
+
+    from repro_torch.models.layers import _rope_table
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(7)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev)
+                * scale).to(BF16)
+
+    norm_lines = []
+    for label, shape, norm_type, with_delta in NORM_GEOMETRIES:
+        d = shape[-1]
+        layer = norm_type == "layernorm"
+        per_set = math.prod(shape) * 2 * (4 if with_delta else 2)
+        copies = max(1, min(8, math.ceil(2 * L2_BYTES / per_set)))
+        scale, bias = randn(d, scale=0.2) + 1, randn(d, scale=0.2)
+        sets = [(randn(*shape), randn(*shape, scale=0.5) if with_delta
+                 else None) for _ in range(copies)]
+        kw = dict(norm_type=norm_type, eps=1e-5)
+        b_ = bias if layer else None
+
+        def kernel(x, delta):
+            return an.add_norm(x, scale, b_, delta, **kw)
+
+        def plain(x, delta):
+            return ref.add_norm_ref(x, scale, b_, delta, **kw)
+
+        def library(x, delta):
+            s = x if delta is None else x + delta
+            if layer:
+                return F.layer_norm(s, (d,), scale, bias, 1e-5)
+            return F.rms_norm(s, (d,), scale, 1e-5)
+
+        x, delta = sets[0]
+        got_s, got = kernel(x, delta)
+        want_s, want = plain(x, delta)
+        torch.cuda.synchronize()
+        if not torch.equal(got_s, want_s):
+            raise AssertionError(f"add_norm's residual sum differs from the "
+                                 f"plain chain's at {label}")
+        ulps, off = ulp_check(got, want)
+        gap = (got.float() - want.float()).abs().max().item()
+        if off:
+            raise AssertionError(f"add_norm disagrees with its plain chain at "
+                                 f"{label}: {off} values over one ulp "
+                                 f"(widest {ulps}), max |err| {gap}")
+        nbytes = math.prod(shape) * 2 * (4 if with_delta else 2)
+        line = {"kernel": "add_norm",
+                "shape": f"{label}: {list(shape)} bf16 {norm_type} "
+                         f"delta={with_delta}",
+                "max_ulps": ulps, "max_abs_err": gap,
+                "equal_share": float((got == want).float().mean()),
+                "ms": time_ms(kernel, sets, 50),
+                "eager_ms": time_ms(kernel, sets, 50, graph=False),
+                "plain_ms": time_ms(plain, sets, 20),
+                "plain_eager_ms": time_ms(plain, sets, 20, graph=False),
+                "library_ms": time_ms(library, sets, 50),
+                "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+                "bound_by": "bytes", "reported": not norm_lines}
+        print(json.dumps(line), flush=True)
+        norm_lines.append(line)
+        del sets
+    rope_lines = []
+    for label, b, s, hq, hkv, hd, first in ROPE_GEOMETRIES:
+        freqs = _rope_table(hd, ROPE_THETA, (), dev)
+        pos = (first + torch.arange(s, device=dev))[None].expand(b, s)
+        per_set = b * s * (hq + hkv) * hd * 2 * 2
+        copies = max(1, min(8, math.ceil(2 * L2_BYTES / per_set)))
+        sets = [(randn(b, s, hq, hd), randn(b, s, hkv, hd))
+                for _ in range(copies)]
+
+        def kernel(q, k):
+            return rp.rope(q, k, pos, freqs)
+
+        def plain(q, k):
+            return ref.rope_ref(q, k, pos, freqs)
+
+        q, k = sets[0]
+        want_q, want_k = plain(q, k)
+        got_q, got_k = kernel(q.clone(), k.clone())
+        torch.cuda.synchronize()
+        (uq, oq), (uk, ok) = ulp_check(got_q, want_q), ulp_check(got_k,
+                                                                   want_k)
+        ulps, off = max(uq, uk), oq + ok
+        gap = max((got_q.float() - want_q.float()).abs().max().item(),
+                  (got_k.float() - want_k.float()).abs().max().item())
+        if off:
+            raise AssertionError(f"rope disagrees with its plain chain at "
+                                 f"{label}: {off} values over one ulp "
+                                 f"(widest {ulps}), max |err| {gap}")
+        equal = float(torch.cat([(got_q == want_q).flatten(),
+                                 (got_k == want_k).flatten()]).float()
+                      .mean())
+        # in place: the timed calls rotate the copies again and again
+        line = {"kernel": "rope",
+                "shape": f"{label}: q [{b},{s},{hq},{hd}] k [{b},{s},{hkv},"
+                         f"{hd}] bf16 first position {first}",
+                "max_ulps": ulps, "max_abs_err": gap, "equal_share": equal,
+                "ms": time_ms(kernel, sets, 50),
+                "eager_ms": time_ms(kernel, sets, 50, graph=False),
+                "plain_ms": time_ms(plain, sets, 20),
+                "plain_eager_ms": time_ms(plain, sets, 20, graph=False),
+                "library_ms": None,
+                "bound_ms": per_set / HBM_BYTES_PER_S * 1e3,
+                "bound_by": "bytes", "reported": not rope_lines}
+        print(json.dumps(line), flush=True)
+        rope_lines.append(line)
+        del sets
+    torch.cuda.empty_cache()
+    return norm_lines, rope_lines
 
 
 def parity_run(cfg, seed: int, kernels: dict, batch: int = 2) -> dict:
@@ -894,7 +1063,7 @@ def whole_model_run(cfg, seeds, kernels: dict, prefill_names,
             "decode_other_top_ms": per_step(dec_other)}
 
 
-def transformer_phases(fa, da):
+def transformer_phases(fa, da, an, rp):
     """Phase 8 at StarCoder2-3B's full width; returns (a)'s and (b)'s
     summaries."""
     import dataclasses
@@ -904,18 +1073,21 @@ def transformer_phases(fa, da):
     base = dataclasses.replace(get_config("starcoder2_3b"), remat=False,
                                attn_impl="pallas")
     kernels = {"flash_attention": fa.flash_attention,
-               "decode_attention": da.decode_attention}
+               "decode_attention": da.decode_attention,
+               "add_norm": an.add_norm, "rope": rp.rope}
     # (a) parity: 2 layers, float32 weights and compute
     cfg = dataclasses.replace(base, num_layers=2, compute_dtype="float32")
     summary_a = {"phase": "8a parity, 2 layers fp32",
                  **parity_run(cfg, 3, kernels)}
     print(json.dumps(summary_a), flush=True)
     n = cfg.num_layers
-    if summary_a["launches_forward"]["flash_attention"] != n or \
-            summary_a["launches_generate"] != {"flash_attention": n,
-                                               "decode_attention": n * 15}:
-        raise AssertionError(f"launch counts {summary_a}: {n} flash a "
-                             f"forward and a prefill, {n * 15} decode")
+    check_launches(summary_a, {"flash_attention": n, "decode_attention": 0,
+                               **norms_ropes(2 * n + 1, n)},
+                   "launches_forward")
+    check_launches(summary_a, {"flash_attention": n,
+                               "decode_attention": n * 15,
+                               **norms_ropes(2 * n + 1, n, 16)},
+                   "launches_generate")
 
     # (b) the whole model: 30 layers, bf16 weights and compute
     cfg = dataclasses.replace(base, param_dtype="bfloat16")
@@ -936,11 +1108,13 @@ def transformer_phases(fa, da):
                                  fa.flash_attention.routes.items()}
     print(json.dumps(summary_b), flush=True)
     n = cfg.num_layers
-    if summary_b["launches_prefill"]["flash_attention"] != n or \
-            summary_b["launches_32_decode_steps"]["decode_attention"] \
-            != n * 32:
-        raise AssertionError(f"launch counts {summary_b}: {n} flash per "
-                             f"prefill and {n * 32} decode")
+    check_launches(summary_b, {"flash_attention": n, "decode_attention": 0,
+                               **norms_ropes(2 * n + 1, n)},
+                   "launches_prefill")
+    check_launches(summary_b, {"flash_attention": 0,
+                               "decode_attention": n * 32,
+                               **norms_ropes(2 * n + 1, n, 32)},
+                   "launches_32_decode_steps")
     if summary_b["flash_routes"]["wgmma"] == 0 or \
             summary_b["flash_routes"]["mma"] != 0:
         raise AssertionError("the 4096-token prefills took "
@@ -949,19 +1123,42 @@ def transformer_phases(fa, da):
     return summary_a, summary_b
 
 
+# the norm and RoPE launches of one forward of an expert of n layers, by
+# arch: a norm before each mixer and each feed-forward and a final one, a
+# RoPE each attention layer
+NORMS_ROPES_PER_FORWARD = {"starcoder2_3b": lambda n: (2 * n + 1, n),
+                           "falcon_mamba_7b": lambda n: (n + 1, 0),
+                           "moonshot_v1_16b_a3b": lambda n: (2 * n + 1, n)}
+
+
+def norms_ropes(norms: int, ropes: int, forwards: int = 1) -> dict:
+    """The launches of the norm and RoPE kernels in ``forwards`` forwards
+    of ``norms`` norms and ``ropes`` RoPEs each."""
+    return {"add_norm": norms * forwards, "rope": ropes * forwards}
+
+
 def lm_router_phase(kernel, arch: str = "starcoder2_3b", layers: int = 2):
     """Phases 9, 12 and 15: the LM router with ``arch``'s experts at full
     width, depth cut to ``layers``; every prompt completes, the launches of
     ``kernel`` (the wrapper of the one kernel each layer runs once a
     forward: flash attention, or the selective scan) = layers x expert
-    forwards, and every served forward's tokens equal the plain-torch path
-    (``attn_impl="xla"``) on the same padded batch."""
+    forwards, those of the norm and RoPE kernels
+    ``NORMS_ROPES_PER_FORWARD`` x expert forwards, and every served
+    forward's tokens equal the plain-torch path (``attn_impl="xla"``) on
+    the same padded batch. Returns the lines and each kernel's launches
+    under both policies, by name."""
     from repro_torch.core import COSERVE, SAMBA_PARALLEL, run_real
+    from repro_torch.kernels import add_norm as an
+    from repro_torch.kernels import rope as rp
     from repro_torch.launch import lm_coe_router as router
 
     cfg = router.lm_config("full", layers, arch)
+    kernels = {kernel.__name__: kernel, "add_norm": an.add_norm,
+               "rope": rp.rope}
+    per_forward = NORMS_ROPES_PER_FORWARD[arch](cfg.num_layers)
     rng = np.random.RandomState(0)
-    store, lines, launches = None, [], 0
+    store, lines = None, []
+    launches = dict.fromkeys(kernels, 0)
     served = []        # (expert id, padded tokens, served argmax), on the host
     try:
         for policy in (COSERVE, SAMBA_PARALLEL):
@@ -989,17 +1186,22 @@ def lm_router_phase(kernel, arch: str = "starcoder2_3b", layers: int = 2):
             engine.apply_fns["tiny_lm"] = record_apply
             reqs = router.make_requests(rng, cfg)
             lm_apply.calls = 0
-            kernel.launches = 0
+            for k in kernels.values():
+                k.launches = 0
             routes = dict(getattr(kernel, "routes", {}))
             m = run_real(system, reqs)
-            count = kernel.launches
+            counts = {n: k.launches for n, k in kernels.items()}
+            count = counts[kernel.__name__]
             calls = lm_apply.calls
-            launches += count
+            for n in launches:
+                launches[n] += counts[n]
             line = {"arch": arch, "policy": policy.name,
                     "completed": m.completed, "requests": len(reqs),
                     "expert_loads": m.switches, "makespan_s": m.makespan,
                     "forwards": calls, "kernel": kernel.__name__,
-                    "kernel_launches": count, "build_s": built_s,
+                    "kernel_launches": count,
+                    "norm_launches": counts["add_norm"],
+                    "rope_launches": counts["rope"], "build_s": built_s,
                     "layers": cfg.num_layers, "d_model": cfg.d_model,
                     "param_dtype": cfg.param_dtype}
             if routes:          # the flash kernel: which kernel each took
@@ -1013,6 +1215,11 @@ def lm_router_phase(kernel, arch: str = "starcoder2_3b", layers: int = 2):
                 raise AssertionError(f"{count} {kernel.__name__} launches for "
                                      f"{calls} forwards of {cfg.num_layers} "
                                      "layers")
+            want = norms_ropes(*per_forward, calls)
+            if {n: counts[n] for n in want} != want:
+                raise AssertionError(f"{arch} {policy.name}: norm and RoPE "
+                                     f"launches {counts} for {calls} "
+                                     f"forwards, the path gives {want}")
             del system, engine, record_execute, record_apply
             gc.collect()       # the engine's device copies of the experts
             torch.cuda.empty_cache()
@@ -1442,7 +1649,7 @@ def mamba_vs_plain(ms, ref):
     return lines
 
 
-def falcon_phases(ms):
+def falcon_phases(ms, an, rp):
     """Phase 11 at Falcon-Mamba-7B's published width; returns (a)'s and
     (b)'s summaries. Every prefill and full-sequence forward launches the
     scan kernel once a layer; decode steps run the recurrence in torch."""
@@ -1452,7 +1659,8 @@ def falcon_phases(ms):
 
     base = dataclasses.replace(get_config("falcon_mamba_7b"), remat=False,
                                attn_impl="pallas")
-    kernels = {"mamba_scan": ms.mamba_scan}
+    kernels = {"mamba_scan": ms.mamba_scan, "add_norm": an.add_norm,
+               "rope": rp.rope}
     scan = ms.mamba_scan
 
     def routes_since(before):
@@ -1467,10 +1675,10 @@ def falcon_phases(ms):
     summary_a["scan_routes"] = routes_since(before)
     print(json.dumps(summary_a), flush=True)
     n = cfg.num_layers
-    if not summary_a["launches_forward"] == summary_a["launches_generate"] \
-            == {"mamba_scan": n}:
-        raise AssertionError(f"scan launches {summary_a}: {n} per forward "
-                             "and per prefill, none in decode")
+    check_launches(summary_a, {"mamba_scan": n, **norms_ropes(n + 1, 0)},
+                   "launches_forward")
+    check_launches(summary_a, {"mamba_scan": n, **norms_ropes(n + 1, 0, 16)},
+                   "launches_generate")
     want = ms.plan(2, 512, cfg.ssm_expand * cfg.d_model,
                    cfg.ssm_state_dim)["route"]
     if summary_a["scan_routes"][want] != sum(
@@ -1490,10 +1698,10 @@ def falcon_phases(ms):
         sum(pre.values()), 1e-9)
     print(json.dumps(summary_b), flush=True)
     n = cfg.num_layers
-    if summary_b["launches_prefill"] != {"mamba_scan": n} or \
-            summary_b["launches_32_decode_steps"] != {"mamba_scan": 0}:
-        raise AssertionError(f"scan launches {summary_b}: {n} per prefill, "
-                             "none in decode")
+    check_launches(summary_b, {"mamba_scan": n, **norms_ropes(n + 1, 0)},
+                   "launches_prefill")
+    check_launches(summary_b, {"mamba_scan": 0, **norms_ropes(n + 1, 0, 32)},
+                   "launches_32_decode_steps")
     if summary_b["scan_routes"]["seq"] != 0 or \
             summary_b["scan_routes"]["chunked"] % n:
         raise AssertionError(f"11b: the 4096-token prefills' scans took "
@@ -1525,7 +1733,7 @@ def moe_weight_floor(cfg) -> dict:
             "chosen_experts_ms": chosen / HBM_BYTES_PER_S * 1e3}
 
 
-def moonlight_phases(fa, da):
+def moonlight_phases(fa, da, an, rp):
     """Phase 13 at Moonlight-16B-A3B's published width; returns (a)'s and
     (b)'s summaries."""
     import dataclasses
@@ -1536,7 +1744,8 @@ def moonlight_phases(fa, da):
     base = dataclasses.replace(get_config("moonshot_v1_16b_a3b"),
                                remat=False, attn_impl="pallas")
     kernels = {"flash_attention": fa.flash_attention,
-               "decode_attention": da.decode_attention}
+               "decode_attention": da.decode_attention,
+               "add_norm": an.add_norm, "rope": rp.rope}
     # (a) parity: 2 layers in float32. Generation runs dropless decode
     # steps while teacher forcing routes prompt and new tokens in one group,
     # so both are held at a capacity factor of E / k, where every expert
@@ -1550,10 +1759,12 @@ def moonlight_phases(fa, da):
                  **parity_run(cfg, 10, kernels)}
     print(json.dumps(summary_a), flush=True)
     n = cfg.num_layers
-    check_launches(summary_a, {"flash_attention": n, "decode_attention": 0},
+    check_launches(summary_a, {"flash_attention": n, "decode_attention": 0,
+                               **norms_ropes(2 * n + 1, n)},
                    "launches_forward")
     check_launches(summary_a, {"flash_attention": n,
-                               "decode_attention": n * 15},
+                               "decode_attention": n * 15,
+                               **norms_ropes(2 * n + 1, n, 16)},
                    "launches_generate")
     # the published capacity factor: what a 4096-token prompt drops
     cfg = dataclasses.replace(cfg, moe_capacity_factor=
@@ -1589,15 +1800,17 @@ def moonlight_phases(fa, da):
                                    ("decode_attention_kernel",))}
     print(json.dumps(summary_b), flush=True)
     n = cfg.num_layers
-    check_launches(summary_b, {"flash_attention": n, "decode_attention": 0},
+    check_launches(summary_b, {"flash_attention": n, "decode_attention": 0,
+                               **norms_ropes(2 * n + 1, n)},
                    "launches_prefill")
     check_launches(summary_b, {"flash_attention": 0,
-                               "decode_attention": n * 32},
+                               "decode_attention": n * 32,
+                               **norms_ropes(2 * n + 1, n, 32)},
                    "launches_32_decode_steps")
     return summary_a, drops, summary_b
 
 
-def jamba_phases(fa, da, ms):
+def jamba_phases(fa, da, ms, an, rp):
     """Phase 14: Jamba-v0.1 with its MoE; returns (a)'s and (b)'s
     summaries. Its whole 32 layers (103 GB in bf16) do not fit one card, so
     the depth is cut to whole periods of 8 layers: one in float32, two in
@@ -1610,7 +1823,8 @@ def jamba_phases(fa, da, ms):
                                attn_impl="pallas")
     kernels = {"flash_attention": fa.flash_attention,
                "decode_attention": da.decode_attention,
-               "mamba_scan": ms.mamba_scan}
+               "mamba_scan": ms.mamba_scan, "add_norm": an.add_norm,
+               "rope": rp.rope}
     # (a) one period in float32, B 1, dropless as in 13(a)
     dropless = base.moe_num_experts / base.moe_top_k
     cfg = dataclasses.replace(base, num_layers=8, compute_dtype="float32",
@@ -1621,9 +1835,11 @@ def jamba_phases(fa, da, ms):
                  **parity_run(cfg, 13, kernels, batch=1)}
     print(json.dumps(summary_a), flush=True)
     check_launches(summary_a, {"flash_attention": 1, "decode_attention": 0,
-                               "mamba_scan": 7}, "launches_forward")
+                               "mamba_scan": 7, **norms_ropes(17, 1)},
+                   "launches_forward")
     check_launches(summary_a, {"flash_attention": 1, "decode_attention": 15,
-                               "mamba_scan": 7}, "launches_generate")
+                               "mamba_scan": 7, **norms_ropes(17, 1, 16)},
+                   "launches_generate")
 
     # (b) two periods in bf16
     cfg = dataclasses.replace(base, num_layers=16, param_dtype="bfloat16")
@@ -1636,9 +1852,11 @@ def jamba_phases(fa, da, ms):
                                    ("decode_attention_kernel",))}
     print(json.dumps(summary_b), flush=True)
     check_launches(summary_b, {"flash_attention": 2, "decode_attention": 0,
-                               "mamba_scan": 14}, "launches_prefill")
+                               "mamba_scan": 14, **norms_ropes(33, 2)},
+                   "launches_prefill")
     check_launches(summary_b, {"flash_attention": 0, "decode_attention": 64,
-                               "mamba_scan": 0}, "launches_32_decode_steps")
+                               "mamba_scan": 0, **norms_ropes(33, 2, 32)},
+                   "launches_32_decode_steps")
     return summary_a, summary_b
 
 
@@ -2594,10 +2812,12 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    from repro_torch.kernels import add_norm as an
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import mamba_scan as ms
     from repro_torch.kernels import ref
+    from repro_torch.kernels import rope as rp
     from repro_torch.launch import serve, serve_real_experts
 
     phase("2 build")
@@ -2640,12 +2860,15 @@ def main() -> int:
     phase("7 flash kernel vs plain")
     flash_lines = flash_vs_plain(fa, ref)
 
+    phase("7b norm and RoPE kernels vs plain (no TPU counterpart)")
+    norm_lines, rope_lines = norm_rope_vs_plain(an, rp, ref)
+
     phase("8 the transformer at StarCoder2-3B's full width")
-    _, starcoder = transformer_phases(fa, da)
+    _, starcoder = transformer_phases(fa, da, an, rp)
 
     phase("9 LM-expert router, full width, 2 layers (the second slice's "
           "main path)")
-    _, flash_launches = lm_router_phase(fa.flash_attention)
+    _, sc2_router = lm_router_phase(fa.flash_attention)
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -2653,12 +2876,12 @@ def main() -> int:
     mamba_lines = mamba_vs_plain(ms, ref)
 
     phase("11 Falcon-Mamba-7B at its published width")
-    _, falcon = falcon_phases(ms)
+    _, falcon = falcon_phases(ms, an, rp)
 
     phase("12 LM-expert router, Falcon-Mamba-7B experts, full width, 2 "
           "layers (the third slice's main path)")
-    scan_lines, scan_launches = lm_router_phase(ms.mamba_scan,
-                                                "falcon_mamba_7b")
+    scan_lines, fm_router = lm_router_phase(ms.mamba_scan,
+                                            "falcon_mamba_7b")
     for line in scan_lines:
         if "routes" in line and line["routes"] != {
                 "seq": line["kernel_launches"], "chunked": 0}:
@@ -2670,10 +2893,10 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     phase("13 Moonlight-16B-A3B at its published width")
-    _, _, moon = moonlight_phases(fa, da)
+    _, _, moon = moonlight_phases(fa, da, an, rp)
 
     phase("14 Jamba-v0.1 with its MoE, depth cut to whole periods")
-    _, jamba = jamba_phases(fa, da, ms)
+    _, jamba = jamba_phases(fa, da, ms, an, rp)
 
     avail = mem_available_gb()
     layers = 2 if avail >= 40 else 1
@@ -2683,7 +2906,7 @@ def main() -> int:
                       "note": "2 layers need 25.4 GB of host memory for "
                               "the seven experts; under 40 GB free the run "
                               "takes 1 layer"}), flush=True)
-    _, moon_router_launches = lm_router_phase(
+    _, moon_router = lm_router_phase(
         fa.flash_attention, "moonshot_v1_16b_a3b", layers)
     gc.collect()
     torch.cuda.empty_cache()
@@ -2733,13 +2956,14 @@ def main() -> int:
     # each kernel's launches on the main paths: the serving run, the
     # routers and the five whole-model runs (8b, 11b, 13b, 14b, 16b), each
     # counted from 0 around its run
-    for summary in (starcoder, falcon, moon, jamba, whisper):
-        for counts in (summary["launches_prefill"],
-                       summary["launches_32_decode_steps"]):
-            decode_launches += counts.get("decode_attention", 0)
-            flash_launches += counts.get("flash_attention", 0)
-            scan_launches += counts.get("mamba_scan", 0)
-    flash_launches += moon_router_launches
+    launches = {"decode_attention": decode_launches}
+    for counts in (sc2_router, fm_router, moon_router,
+                   *(summary[key] for summary in (starcoder, falcon, moon,
+                                                  jamba, whisper)
+                     for key in ("launches_prefill",
+                                 "launches_32_decode_steps"))):
+        for name, count in counts.items():
+            launches[name] = launches.get(name, 0) + count
 
     rep = next(ln for ln in lines if ln["reported"])
     flash_rep = next(ln for ln in flash_lines if ln["reported"])
@@ -2748,11 +2972,15 @@ def main() -> int:
     print(f"card: {card_line()}")
     print(json.dumps({"kernels": [
         kernel_entry("decode_attention", DECODE_SOURCE, DECODE_REPLACES,
-                     decode_launches, rep),
+                     launches["decode_attention"], rep),
         kernel_entry("flash_attention", FLASH_SOURCE, FLASH_REPLACES,
-                     flash_launches, flash_rep),
+                     launches["flash_attention"], flash_rep),
         kernel_entry("mamba_scan", MAMBA_SOURCE, MAMBA_REPLACES,
-                     scan_launches, mamba_rep)]}))
+                     launches["mamba_scan"], mamba_rep),
+        kernel_entry("add_norm", ADD_NORM_SOURCE, NO_TPU_KERNEL,
+                     launches["add_norm"], norm_lines[0]),
+        kernel_entry("rope", ROPE_SOURCE, NO_TPU_KERNEL, launches["rope"],
+                     rope_lines[0])]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

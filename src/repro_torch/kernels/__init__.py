@@ -7,8 +7,14 @@ plain PyTorch version in ``ref.py``.
   optional sliding window (CUDA C++, ``csrc/flash_attention.cu``)
 - mamba_scan: the Mamba-1 selective scan, state carried over the sequence
   (CUDA C++, ``csrc/mamba_scan.cu``)
+- add_norm: a residual add and LayerNorm or RMSNorm in one launch (CUDA
+  C++, ``csrc/add_norm.cu``; no TPU counterpart)
+- rope: rotate-half RoPE of q and k in one launch, in place (CUDA C++,
+  ``csrc/rope.cu``; no TPU counterpart)
 """
-from repro_torch.kernels.ops import (decode_attention_op, flash_attention_op,
-                                     mamba_scan_op)
+from repro_torch.kernels.ops import (add_norm_op, decode_attention_op,
+                                     flash_attention_op, mamba_scan_op,
+                                     rope_op)
 
-__all__ = ["decode_attention_op", "flash_attention_op", "mamba_scan_op"]
+__all__ = ["add_norm_op", "decode_attention_op", "flash_attention_op",
+           "mamba_scan_op", "rope_op"]

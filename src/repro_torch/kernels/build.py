@@ -17,6 +17,8 @@ import threading
 from pathlib import Path
 from typing import Callable, Dict
 
+import torch
+
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -61,6 +63,23 @@ def build_library(source: Path) -> Path:
     return path
 
 
+def current_raw_stream(device_index: int) -> int:
+    """The handle of the current CUDA stream of ``device_index``: what
+    ``torch.cuda.current_stream(device).cuda_stream`` gives, without making
+    a ``Stream`` object (a tenth of its host time)."""
+    return torch._C._cuda_getCurrentRawStream(device_index)
+
+
+def call_on(device_index: int, fn, *args):
+    """``fn(*args)`` with card ``device_index`` current, as a launch through
+    a C interface needs (entering ``torch.cuda.device`` only where another
+    card is current: it costs as much as the launch)."""
+    if torch.cuda.current_device() == device_index:
+        return fn(*args)
+    with torch.cuda.device(device_index):
+        return fn(*args)
+
+
 _loaded: Dict[Path, ctypes.CDLL] = {}
 _load_lock = threading.Lock()
 
@@ -70,6 +89,9 @@ def load_library(source: Path,
     """The library of ``source``, built and loaded at the first call, when
     ``bind`` sets its functions' argument and result types; later calls
     return the same handle."""
+    lib = _loaded.get(source)
+    if lib is not None:
+        return lib
     with _load_lock:
         lib = _loaded.get(source)
         if lib is None:

@@ -21,7 +21,8 @@ from pathlib import Path
 
 import torch
 
-from repro_torch.kernels.build import load_library
+from repro_torch.kernels.build import (call_on, current_raw_stream,
+                                       load_library)
 from repro_torch.kernels.ref import flash_attention_ref
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
@@ -117,13 +118,13 @@ def launch(q, k, v, *, causal: bool, window: int, kernel: str):
     hkv, t = k.shape[1], k.shape[2]
     out = torch.empty((b, s, h, d), dtype=q.dtype,
                       device=q.device).transpose(1, 2)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = lib.coserve_flash_attention(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h,
-            hkv, s, t, d, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-            *out.stride()[:3], int(bool(causal)), int(window),
-            ROUTES[kernel], stream)
+    dev = q.get_device()
+    rc = call_on(
+        dev, lib.coserve_flash_attention, q.data_ptr(), k.data_ptr(),
+        v.data_ptr(), out.data_ptr(), b, h, hkv, s, t, d, *q.stride()[:3],
+        *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
+        int(bool(causal)), int(window), ROUTES[kernel],
+        current_raw_stream(dev))
     if rc != 0:
         raise RuntimeError(
             f"flash_attention kernel launch failed: CUDA error {rc} "

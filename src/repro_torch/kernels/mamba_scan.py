@@ -26,7 +26,8 @@ from pathlib import Path
 
 import torch
 
-from repro_torch.kernels.build import load_library
+from repro_torch.kernels.build import (call_on, current_raw_stream,
+                                       load_library)
 from repro_torch.kernels.ref import mamba_scan_ref
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "mamba_scan.cu"
@@ -179,17 +180,16 @@ def launch(x, dt, b_mat, c_mat, a, d_vec, *, kernel: str):
     n = b_mat.shape[-1]
     y = torch.empty((bsz, s, d), dtype=x.dtype, device=x.device)
     h = torch.empty((bsz, d, n), dtype=torch.float32, device=x.device)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        fn = (lib.coserve_mamba_scan_chunked if kernel == "chunked"
-              else lib.coserve_mamba_scan)
-        rc = fn(
-            x.data_ptr(), dt.data_ptr(), b_mat.data_ptr(), c_mat.data_ptr(),
-            a.data_ptr(), d_vec.data_ptr(), y.data_ptr(), h.data_ptr(), bsz,
-            s, d, n, *x.stride()[:2], *dt.stride()[:2], *b_mat.stride()[:2],
-            *c_mat.stride()[:2], int(x.dtype == torch.bfloat16),
-            int(dt.dtype == torch.bfloat16),
-            int(b_mat.dtype == torch.bfloat16), stream)
+    dev = x.get_device()
+    fn = (lib.coserve_mamba_scan_chunked if kernel == "chunked"
+          else lib.coserve_mamba_scan)
+    rc = call_on(
+        dev, fn, x.data_ptr(), dt.data_ptr(), b_mat.data_ptr(),
+        c_mat.data_ptr(), a.data_ptr(), d_vec.data_ptr(), y.data_ptr(),
+        h.data_ptr(), bsz, s, d, n, *x.stride()[:2], *dt.stride()[:2],
+        *b_mat.stride()[:2], *c_mat.stride()[:2],
+        int(x.dtype == torch.bfloat16), int(dt.dtype == torch.bfloat16),
+        int(b_mat.dtype == torch.bfloat16), current_raw_stream(dev))
     if rc != 0:
         raise RuntimeError(
             f"mamba_scan kernel launch failed: CUDA error {rc} "

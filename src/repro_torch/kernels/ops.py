@@ -14,9 +14,21 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.add_norm import add_norm
 from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.mamba_scan import mamba_scan
+from repro_torch.kernels.rope import rope
+
+
+# the model step's kernel wrappers whose ``launches`` a ``forward`` span
+# carries the growth of, under these names
+_COUNTED = {"norm_launches": add_norm, "rope_launches": rope}
+
+
+def launch_counts() -> dict:
+    """The launches so far of each wrapper in ``_COUNTED``, by its name."""
+    return {name: fn.launches for name, fn in _COUNTED.items()}
 
 
 def _refuse_grad(name: str, *tensors) -> None:
@@ -46,3 +58,18 @@ def mamba_scan_op(x, dt, b_mat, c_mat, a, d_vec):
     Returns (y [B,S,D], h_final [B,D,N])."""
     _refuse_grad("mamba_scan", x, dt, b_mat, c_mat, a, d_vec)
     return mamba_scan(x, dt, b_mat, c_mat, a, d_vec)
+
+
+def add_norm_op(x, scale, bias=None, delta=None, *, norm_type: str,
+                eps: float):
+    """x, delta: [..., d]; scale, bias: [d]. Returns (x + delta, its norm);
+    (x, its norm) without a delta."""
+    _refuse_grad("add_norm", x, scale, bias, delta)
+    return add_norm(x, scale, bias, delta, norm_type=norm_type, eps=eps)
+
+
+def rope_op(q, k, positions, freqs):
+    """q: [B,S,Hq,hd]; k: [B,S,Hkv,hd]; positions: [B,S]; freqs: [hd/2].
+    Returns (q, k) rotated, in place on the card."""
+    _refuse_grad("rope", q, k)
+    return rope(q, k, positions, freqs)

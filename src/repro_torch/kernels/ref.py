@@ -1,6 +1,10 @@
 """Plain float32 PyTorch versions of the port's kernels (independent, naive
 math, the layouts of ``repro.kernels.ref``). The CPU path runs them, and the
-card-side checks hold each hand-written kernel against them."""
+card-side checks hold each hand-written kernel against them.
+
+The norms and RoPE are the model's own chains (``models/layers.py`` runs
+them for ``attn_impl="xla"``, and RoPE's rotation for M-RoPE), so that a CPU
+forward through the kernels' entry points is bit for bit the plain one."""
 from __future__ import annotations
 
 import torch
@@ -77,3 +81,54 @@ def mamba_scan_ref(x, dt, b_mat, c_mat, a, d_vec, h0=None):
         ys.append(torch.einsum("bdn,bn->bd", h, cf[:, t]))
     y = torch.stack(ys, dim=1) + xf * d_vec.float()[None, None]
     return y.to(x.dtype), h
+
+
+def rmsnorm_ref(x, scale, eps=1e-5):
+    dtype = x.dtype
+    x = x.float()
+    var = torch.mean(x * x, dim=-1, keepdim=True)
+    out = x * torch.rsqrt(var + eps) * scale.float()
+    return out.to(dtype)
+
+
+def layernorm_ref(x, scale, bias, eps=1e-5):
+    dtype = x.dtype
+    x = x.float()
+    mu = torch.mean(x, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(x - mu), dim=-1, keepdim=True)
+    out = (x - mu) * torch.rsqrt(var + eps) * scale.float() + bias.float()
+    return out.to(dtype)
+
+
+def add_norm_ref(x, scale, bias=None, delta=None, *, norm_type: str,
+                 eps: float):
+    """(s, out): s = x + delta in x's dtype (x itself without ``delta``),
+    out its ``norm_type`` ("layernorm" with ``bias``, or "rmsnorm") over
+    the last dim."""
+    if delta is not None:
+        x = x + delta
+    if norm_type == "layernorm":
+        return x, layernorm_ref(x, scale, bias, eps)
+    return x, rmsnorm_ref(x, scale, eps)
+
+
+def rotate_ref(x, angles):
+    """Rotate-half RoPE of x [B,S,H,hd] by float32 angles [B,S,hd/2]."""
+    half = x.shape[-1] // 2
+    cos = torch.cos(angles)[:, :, None, :]
+    sin = torch.sin(angles)[:, :, None, :]
+    x1, x2 = x[..., :half], x[..., half:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def rope_angles(positions, freqs):
+    """float32 angles [B,S,hd/2] of positions [B,S] at frequencies [hd/2]."""
+    return positions.float()[..., None] * freqs
+
+
+def rope_ref(q, k, positions, freqs):
+    """(q, k) rotated: q [B,S,Hq,hd] and k [B,S,Hkv,hd] at positions [B,S]
+    by the float32 frequencies freqs [hd/2]."""
+    angles = rope_angles(positions, freqs)
+    return rotate_ref(q, angles), rotate_ref(k, angles)

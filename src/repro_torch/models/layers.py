@@ -13,7 +13,11 @@ rules and a mesh (``repro_torch.sharding``): on one card each is a no-op.
 ``cfg.attn_impl`` keeps its meaning: ``"xla"`` runs ``chunked_attention`` /
 ``ring_decode_attention`` in plain torch, ``"pallas"`` the hand-written
 kernels (``flash_attention_op`` / ``decode_attention_op``), which take the
-plain versions only for CPU tensors.
+plain versions only for CPU tensors. Under ``"pallas"`` the norms (with the
+residual add before them, ``add_apply_norm``) and standard RoPE of q and k
+(``apply_rope_qk``) are one launch each of hand-written kernels too
+(``add_norm_op``, ``rope_op``), which refuse grad as the attention kernels
+do; M-RoPE keeps the plain chain.
 """
 from __future__ import annotations
 
@@ -25,7 +29,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels.ops import decode_attention_op, flash_attention_op
+from repro_torch.kernels.ops import (add_norm_op, decode_attention_op,
+                                     flash_attention_op, rope_op)
+from repro_torch.kernels.ref import (add_norm_ref, layernorm_ref,
+                                     rmsnorm_ref, rope_angles, rotate_ref)
 from repro_torch.sharding.logical import (gather_leading, local_offset,
                                           local_region, logical_constraint,
                                           logical_reshape)
@@ -118,27 +125,25 @@ def cast_param(p, compute_dtype, *axes):
 # norms
 # --------------------------------------------------------------------------- #
 
-def rmsnorm(x, scale, eps=1e-5):
-    dtype = x.dtype
-    x = x.float()
-    var = torch.mean(x * x, dim=-1, keepdim=True)
-    out = x * torch.rsqrt(var + eps) * scale.float()
-    return out.to(dtype)
+# the plain chains live beside the kernels (``kernels/ref.py``), whose
+# entry points take them for CPU tensors
+rmsnorm = rmsnorm_ref
+layernorm = layernorm_ref
 
 
-def layernorm(x, scale, bias, eps=1e-5):
-    dtype = x.dtype
-    x = x.float()
-    mu = torch.mean(x, dim=-1, keepdim=True)
-    var = torch.mean(torch.square(x - mu), dim=-1, keepdim=True)
-    out = (x - mu) * torch.rsqrt(var + eps) * scale.float() + bias.float()
-    return out.to(dtype)
+def apply_norm(x, params, norm_type, eps, impl: str = "xla"):
+    return add_apply_norm(x, None, params, norm_type, eps, impl)[1]
 
 
-def apply_norm(x, params, norm_type, eps):
-    if norm_type == "layernorm":
-        return layernorm(x, params["scale"], params["bias"], eps)
-    return rmsnorm(x, params["scale"], eps)
+def add_apply_norm(x, delta, params, norm_type, eps, impl: str = "xla"):
+    """(x + delta, its norm): the residual add and the pre-norm after it
+    (``delta`` None: (x, its norm)). ``impl="pallas"`` takes them in one
+    launch of the hand-written kernel (``add_norm_op``); ``"xla"`` runs the
+    plain chain."""
+    bias = params["bias"] if norm_type == "layernorm" else None
+    run = add_norm_op if impl == "pallas" else add_norm_ref
+    return run(x, params["scale"], bias, delta, norm_type=norm_type,
+               eps=eps)
 
 
 NORM_AXES = {"scale": (None,), "bias": (None,)}
@@ -192,12 +197,20 @@ def apply_rope(x, positions, theta: float, sections: Tuple[int, ...] = ()):
         pos_per_band = positions.float()[section_ids]          # [half,B,S]
         angles = pos_per_band.permute(1, 2, 0) * freqs         # [B,S,half]
     else:
-        angles = positions.float()[..., None] * freqs          # [B,S,half]
-    cos = torch.cos(angles)[:, :, None, :]
-    sin = torch.sin(angles)[:, :, None, :]
-    x1, x2 = x[..., :half], x[..., half:]
-    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
-    return out.to(x.dtype)
+        angles = rope_angles(positions, freqs)                 # [B,S,half]
+    return rotate_ref(x, angles)
+
+
+def apply_rope_qk(q, k, positions, theta: float,
+                  sections: Tuple[int, ...] = (), impl: str = "xla"):
+    """(q, k) through ``apply_rope``. ``impl="pallas"`` rotates both in one
+    launch of the hand-written kernel, in place on the card (``rope_op``);
+    ``"xla"`` and M-RoPE run the plain chain."""
+    if impl != "pallas" or sections:
+        return (apply_rope(q, positions, theta, sections),
+                apply_rope(k, positions, theta, sections))
+    return rope_op(q, k, positions,
+                   _rope_table(q.shape[-1], theta, (), q.device))
 
 
 # --------------------------------------------------------------------------- #
@@ -424,8 +437,8 @@ def attention_block(params, x, cfg, positions, *, cache=None, pos=None,
             x @ cast_param(params["wv"], compute_dtype, *ATTN_AXES["wv"]),
             (b, s, cfg.num_kv_heads, hd), *kv_axes)
         if positions is not None:
-            q = apply_rope(q, positions, cfg.rope_theta, cfg.mrope_sections)
-            k = apply_rope(k, positions, cfg.rope_theta, cfg.mrope_sections)
+            q, k = apply_rope_qk(q, k, positions, cfg.rope_theta,
+                                 cfg.mrope_sections, cfg.attn_impl)
     else:
         k, v = cross_kv
     q = logical_constraint(q, *q_axes)

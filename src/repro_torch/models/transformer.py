@@ -20,6 +20,7 @@ from __future__ import annotations
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
@@ -133,7 +134,9 @@ def _apply_slot(slot_params, x, cfg: ModelConfig, slot, positions, cdtype,
     attention slot's (k, v) (of this segment without ``cache``; the ring,
     updated in place, with it), a mamba slot's new {"conv", "ssm"} state;
     the MoE layer's auxiliary loss, or None without one."""
-    h = L.apply_norm(x, slot_params["norm1"], cfg.norm_type, cfg.norm_eps)
+    impl = cfg.attn_impl
+    h = L.apply_norm(x, slot_params["norm1"], cfg.norm_type, cfg.norm_eps,
+                     impl)
     if slot.mixer == "attn":
         kv = None if cache is None else (cache["k"], cache["v"])
         out, new_cache = L.attention_block(slot_params["attn"], h, cfg,
@@ -142,18 +145,16 @@ def _apply_slot(slot_params, x, cfg: ModelConfig, slot, positions, cdtype,
     else:
         out, new_cache = ssm_lib.mamba_forward(slot_params["mamba"], h, cfg,
                                                cdtype, state=cache)
-    x = x + out
+    if slot.ffn is None:
+        return x + out, new_cache, None
+    x, h2 = L.add_apply_norm(x, out, slot_params["norm2"], cfg.norm_type,
+                             cfg.norm_eps, impl)
     aux = None
-    if slot.ffn is not None:
-        h2 = L.apply_norm(x, slot_params["norm2"], cfg.norm_type,
-                          cfg.norm_eps)
-        if slot.ffn == "moe":
-            out2, aux, _ = moe_lib.moe_block(slot_params["moe"], h2, cfg,
-                                             cdtype)
-        else:
-            out2 = L.mlp_block(slot_params["mlp"], h2, cfg.mlp_type, cdtype)
-        x = x + out2
-    return x, new_cache, aux
+    if slot.ffn == "moe":
+        out2, aux, _ = moe_lib.moe_block(slot_params["moe"], h2, cfg, cdtype)
+    else:
+        out2 = L.mlp_block(slot_params["mlp"], h2, cfg.mlp_type, cdtype)
+    return x + out2, new_cache, aux
 
 
 def _default_positions(cfg: ModelConfig, batch, seq, device, offset=0):
@@ -171,7 +172,8 @@ def _embed_input(params, tokens, input_embeds, cdtype):
 
 
 def _head(params, x, cfg: ModelConfig, cdtype, **axes):
-    x = L.apply_norm(x, params["final_norm"], cfg.norm_type, cfg.norm_eps)
+    x = L.apply_norm(x, params["final_norm"], cfg.norm_type, cfg.norm_eps,
+                     cfg.attn_impl)
     head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
     return L.unembed(head, x, cfg.logical_vocab_size, cdtype, **axes)
 
@@ -196,7 +198,9 @@ def forward(params, tokens, cfg: ModelConfig, positions=None,
     Inside a real engine's traced ``apply`` (``obs.tracer.active()`` on the
     wall clock), the call records a ``forward`` span from entry to return
     and, on a card, a CUDA event pair around its launches on the current
-    stream (the span's ``device_us``, read after a later synchronisation)."""
+    stream (the span's ``device_us``, read after a later synchronisation),
+    and ``norm_launches`` / ``rope_launches``: how many launches of the
+    norm and RoPE kernels the call made (``ops.launch_counts``)."""
     tracer = obs_tracer.active()
     if not tracer.wall:
         return _forward(params, tokens, cfg, positions, input_embeds, mode)
@@ -208,7 +212,10 @@ def forward(params, tokens, cfg: ModelConfig, positions=None,
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
+        before = ops.launch_counts()
         out = _forward(params, tokens, cfg, positions, input_embeds, mode)
+        span.attrs.update({k: n - before[k]
+                           for k, n in ops.launch_counts().items()})
         if timed:
             end.record()
             tracer.defer(span, start, end)

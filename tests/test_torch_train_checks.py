@@ -120,7 +120,8 @@ def test_remat_changes_no_gradient(arch, monkeypatch):
 def test_pallas_config_refuses_to_train():
     cfg, params = tiny(attn_impl="pallas")
     batch = as_torch(make_batch_for(cfg, 2, 16))
-    with pytest.raises(RuntimeError, match="flash_attention has no backward"):
+    # the first kernel the step's forward reaches is the pre-attention norm
+    with pytest.raises(RuntimeError, match="add_norm has no backward"):
         make_train_step(cfg)(params, adamw_init(params), batch)
 
 
