@@ -9,12 +9,21 @@ import torch
 from coebench import bench, cell, control, correct
 from coebench.tests import smoke
 
-CONFIGS = [c["name"] for c in bench.Benchmark().spec["configs"]]
+SPEC = bench.Benchmark()
+CONFIGS = [c["name"] for c in SPEC.spec["configs"]]
+CELLS = [w["name"] for w in SPEC.spec["workloads"]]
 
 
 @pytest.mark.parametrize("name", sorted(CONFIGS))
 def test_control_reads_above_the_program(name):
-    cfg, mix = smoke.config(name), smoke.mix("switch128")
+    """At smoke widths, on the traffic of the configuration's first cell:
+    the control's ``logit_rel_rms`` three times the program's or more, and
+    where the family's widths file lists a check under
+    ``control_crosses_limits``, the configuration's limit of it between
+    the two."""
+    cfg = smoke.config(name)
+    mix = smoke.mix(next(w["traffic"] for w in SPEC.spec["workloads"]
+                         if w["config"] == name))
     st = cell.Setup(cfg, mix, 5, torch.device("cpu"))
     st.port_cfg = cell.port_config(cfg)
     cell.make_weights(st)
@@ -25,9 +34,10 @@ def test_control_reads_above_the_program(name):
     prog = correct.numbers(rows, refs)
     ctrl = correct.numbers(rows, refs, "control")
     assert ctrl["logit_rel_rms"] >= 3 * prog["logit_rel_rms"]
-    if name.startswith("starcoder2"):
-        assert ctrl["logit_rel_rms"] > cfg["limits"]["logit_rel_rms"] \
-            > prog["logit_rel_rms"]
+    crosses = smoke.widths(cfg["model_type"]).get("control_crosses_limits",
+                                                  [])
+    for key in crosses:
+        assert ctrl[key] > cfg["limits"][key] > prog[key], key
 
 
 @pytest.fixture
@@ -37,16 +47,11 @@ def card():
     return torch.device("cuda", 0)
 
 
-CELLS = {}
-for _w in bench.Benchmark().spec["workloads"]:      # one cell a config
-    CELLS.setdefault(_w["config"], _w["name"])
-
-
 @pytest.mark.cuda
-@pytest.mark.parametrize("work", sorted(CELLS.values()))
+@pytest.mark.parametrize("work", CELLS)
 def test_control_fails_at_the_cells_size(card, capsys, work):
-    """A cell of each configuration at its own size, three seeds, judged
-    by ``correct.passed`` against the cell's limits: the program correct on
+    """Every cell at its own size, three seeds, judged by
+    ``correct.passed`` against the cell's limits: the program correct on
     each, the control not correct on each."""
     assert control.main(["--workload", work, "--seeds", "71,72,73",
                          "--control-seeds", "3", "--seconds", "8"],

@@ -3,9 +3,10 @@ found by name, and the file keeps to the contract's form."""
 import json
 import re
 
+import numpy as np
 import pytest
 
-from coebench import bench, cell, reference, roofline
+from coebench import bench, cell, reference, roofline, traffic
 from coebench.tests import smoke
 
 SPEC = bench.Benchmark()
@@ -44,6 +45,8 @@ def test_config_found_and_cut_honestly(entry):
     assert pc.num_layers == cfg["num_hidden_layers"]
     assert reference.family(cfg["model_type"]).layout(cfg)
     assert roofline.prompt_flops(cfg, 16) > 0
+    assert {"published", "port"} <= set(
+        smoke.widths(cfg["model_type"]))
     assert set(cfg["limits"]) == {"chain_faults", "token_gap",
                                   "logit_rel_rms"}
     assert cfg["limits"]["chain_faults"] == 0
@@ -99,8 +102,19 @@ def test_readers_are_silent_without_their_source():
         assert bench.reader(name)(record) is None, name
 
 
-@pytest.mark.parametrize("name", ["switch128"])
+MIXES = sorted({w["traffic"] for w in SPEC.spec["workloads"]})
+
+
+@pytest.mark.parametrize("name", MIXES)
 def test_mix_files(name):
+    """Every mix a cell names; the domains it sends to are in each of its
+    cells' configurations."""
     mix = json.loads((bench.HERE / "mixes" / f"{name}.json").read_text())
     assert {"round_size", "domains", "prompt_tokens", "check_fraction",
             "check_requests"} <= set(mix)
+    for w in SPEC.spec["workloads"]:
+        if w["traffic"] == name:
+            doms = traffic.round_domains(
+                mix, SPEC.config(w["config"])["coe"]["domains"],
+                np.random.default_rng(1))
+            assert len(doms) == mix["round_size"]

@@ -1,4 +1,5 @@
-"""The frozen FLOP and byte counts against hand values for one shape."""
+"""The frozen FLOP and byte counts against hand values for one shape (each
+family's prompt FLOPs: ``test_coebench_family_<model_type>.py``)."""
 import pytest
 
 from coebench import bench, roofline
@@ -27,26 +28,6 @@ def test_scan_launch_falcon_mamba_batch():
                             + d * n * 4 + d * 4 + b * d * n * 4)
     assert got["ops"] == b * s * d * (7 * n + 3)
     assert got["bound_by"] == "bytes"
-
-
-def test_prompt_flops_by_hand():
-    sc = bench.Benchmark().config("starcoder2_3b_nobias_x14")
-    d, ff, kv, v = 3072, 12288, 256, 49152
-    per_token = 2 * d * d * 2 + 2 * 2 * d * kv + 2 * 2 * d * ff
-    attn = 4 * 24 * 128 * (128 * 129 // 2)
-    assert roofline.prompt_flops(sc, 128) == 30 * (128 * per_token + attn) \
-        + 2 * d * v
-    fm = bench.Benchmark().config("falcon_mamba_7b_nomixnorm_x19")
-    d, di, n, rk, v = 4096, 8192, 16, 256, 65024
-    per_token = (2 * d * 2 * di + 2 * 4 * di + 2 * di * (rk + 2 * n)
-                 + 2 * rk * di + 4 * di * n + 2 * di * d)
-    assert roofline.prompt_flops(fm, 1024) == 16 * 1024 * per_token \
-        + 2 * d * v
-    # a 1024-token request through both stages: about 12.2 and 6.9 TFLOP
-    assert 2 * roofline.prompt_flops(sc, 1024) == pytest.approx(12.2e12,
-                                                                rel=0.01)
-    assert 2 * roofline.prompt_flops(fm, 1024) == pytest.approx(6.9e12,
-                                                                rel=0.01)
 
 
 def test_launches_from_forwards():

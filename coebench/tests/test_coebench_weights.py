@@ -1,13 +1,15 @@
 """The benchmark's weight maker lays out exactly the program's parameter
-tree (names, shapes, dtypes), draws the same weights from the same seed and
-different ones for each expert."""
+tree (names, shapes, dtypes) for every configuration, draws the same weights
+from the same seed and different ones for each expert. The full-width sizes
+counted by hand are each family's own
+(``test_coebench_family_<model_type>.py``)."""
 import pytest
 import torch
 
-from coebench import cell, reference, weights
+from coebench import bench, cell, reference, weights
 from coebench.tests import smoke
 
-NAMES = ["starcoder2_3b_nobias_x14", "falcon_mamba_7b_nomixnorm_x19"]
+NAMES = [c["name"] for c in bench.Benchmark().spec["configs"]]
 
 
 @pytest.mark.parametrize("name", NAMES)
@@ -26,32 +28,6 @@ def test_layout_is_the_programs_init_params_tree(name):
     for k in theirs:
         assert ours[k].shape == theirs[k].shape, k
         assert ours[k].dtype == theirs[k].dtype, k
-
-
-def _hand_count(name):
-    if name.startswith("starcoder2"):   # d 3072, 24 + 2 heads of 128, ff
-        d, kv, ff, v, layers = 3072, 256, 12288, 49152, 30
-        layer = 4 * d + 2 * d * d + 2 * d * kv + 2 * d * ff
-        return v * d + layers * layer + 2 * d, 0
-    d, di, n, rk, v, layers = 4096, 8192, 16, 256, 65024, 16
-    layer = (d + d * 2 * di + 4 * di + di + di * (rk + 2 * n) + rk * di
-             + di + di * d)
-    return 2 * v * d + layers * layer + d, layers * (di * n + di)
-
-
-@pytest.mark.parametrize("name", NAMES)
-def test_full_width_layout_sizes(name):
-    """At the published widths: the parameters counted by hand, bf16 but
-    Mamba's A and D in float32 (3.030 B and 2.218 B parameters, the
-    latter with its untied head)."""
-    cfg = smoke.json.loads((smoke.HERE / "configs" / f"{name}.json")
-                           .read_text())
-    layout = reference.family(cfg["model_type"]).layout(cfg)
-    n16 = sum(torch.Size(s).numel() for _, s, dt, *_ in layout
-              if dt == "bfloat16")
-    n32 = sum(torch.Size(s).numel() for _, s, dt, *_ in layout
-              if dt == "float32")
-    assert (n16, n32) == _hand_count(name)
 
 
 def test_seeded_and_distinct():
