@@ -82,6 +82,18 @@ Phases, each of which ends the run with a nonzero exit when it fails:
    plain path; (b) two periods (16 layers, the depth cut so the bf16
    weights fit one card) the same way as 13(b): the one model whose
    forward runs all three kernels;
+14c. a Jamba2-Mini stage (ai21labs/AI21-Jamba2-Mini: 8 of 32 layers,
+   experts 0-7 of each MoE layer's 16 held, dropless top-2 without
+   renormalising, no RoPE, the mixer's dt, B and C norms) at full width in
+   bf16, B 8 x S 128: ``moe_grouped`` against its plain version
+   (``moe_grouped_ref``) on the arguments a forward's first MoE layer hands
+   it, timed beside its bound, the plain version and a per-expert
+   ``torch.matmul`` loop that reads the counts on the host (the library
+   yardstick); the forward's launches counted from 0 (8 ``moe_grouped``, 7
+   ``mamba_scan``, 1 ``flash_attention``, 38 ``add_norm``: 17 norms of the
+   residual stream and 21 of the mixers' dt, B and C; no ``rope``);
+   then the forward timed with the kernel and with that loop in its place,
+   in turns;
 15. the LM-expert router with ``--arch moonshot_v1_16b_a3b`` at full
    width, 2 layers (1 if the host has under 40 GB free for the store): 90
    prompts under both policies, flash launches = layers x forwards, every
@@ -185,6 +197,9 @@ FLASH_SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
 FLASH_REPLACES = "src/repro/kernels/flash_attention.py:84"
 MAMBA_SOURCE = "src/repro_torch/kernels/csrc/mamba_scan.cu"
 MAMBA_REPLACES = "src/repro/kernels/mamba_scan.py:63"
+MOE_SOURCE = "src/repro_torch/kernels/csrc/moe_grouped.cu"
+MOE_REPLACES = ("none: the JAX package's MoE layer is plain jnp over a "
+                "capacity buffer, which XLA compiles")
 ADD_NORM_SOURCE = "src/repro_torch/kernels/csrc/add_norm.cu"
 ROPE_SOURCE = "src/repro_torch/kernels/csrc/rope.cu"
 NO_TPU_KERNEL = "none: XLA fuses the chain on the TPU"
@@ -544,10 +559,12 @@ def build_all():
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import mamba_scan as ms
+    from repro_torch.kernels import moe_grouped as mg
     from repro_torch.kernels import rope as rp
 
     t0 = time.perf_counter()
-    sources = (da.SOURCE, fa.SOURCE, ms.SOURCE, an.SOURCE, rp.SOURCE)
+    sources = (da.SOURCE, fa.SOURCE, ms.SOURCE, an.SOURCE, rp.SOURCE,
+               mg.SOURCE)
     with ThreadPoolExecutor(max_workers=len(sources)) as pool:
         libs = list(pool.map(build.build_library, sources))
     print(f"built {', '.join(os.path.relpath(p, ROOT) for p in libs)} in "
@@ -1860,6 +1877,157 @@ def jamba_phases(fa, da, ms, an, rp):
     return summary_a, summary_b
 
 
+def jamba2_stage_config():
+    """Phase 14c's model: a Jamba2-Mini stage as one of its 8 cards holds
+    it (the benchmark's ``jamba2_mini_l8e8_x5`` configuration)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(
+        get_config("jamba_v0_1_52b"), num_layers=8, param_dtype="bfloat16",
+        tie_embeddings=False, norm_eps=1e-6, moe_experts_held=8,
+        moe_dropless=True, moe_renormalize=False, attn_rope=False,
+        ssm_dt_bc_norms=True, attn_impl="pallas", remat=False)
+
+
+def expert_loop(x, order, offsets, weights, top_k, w_in, w_down):
+    """The library yardstick of ``moe_grouped``: one pair of bf16
+    ``torch.matmul`` products a held expert over its rows, each expert's
+    count read on the host first (the synchronisation the kernel avoids)."""
+    import torch.nn.functional as F
+
+    d, ff = x.shape[-1], w_in.shape[-1]
+    out = torch.zeros((order.shape[0], d), dtype=x.dtype, device=x.device)
+    bounds = offsets.tolist()
+    for e in range(len(bounds) - 1):
+        pairs = order[bounds[e]:bounds[e + 1]]
+        if not pairs.numel():
+            continue
+        gu = (x[pairs // top_k] @ w_in[e].view(d, 2 * ff)).view(-1, 2, ff)
+        h = F.silu(gu[:, 0]) * gu[:, 1]
+        out[pairs] = (h @ w_down[e]) * weights[pairs, None].to(x.dtype)
+    return out
+
+
+def jamba2_stage_phase(fa, ms, an, rp, mg, ref, forwards: int = 10):
+    """Phase 14c; returns (the kernel's line, the forward's summary)."""
+    from repro_torch.models import moe, transformer
+
+    cfg = jamba2_stage_config()
+    dev = torch.device("cuda")
+    kernels = {"flash_attention": fa.flash_attention,
+               "mamba_scan": ms.mamba_scan, "add_norm": an.add_norm,
+               "rope": rp.rope, "moe_grouped": mg.moe_grouped}
+    gen = torch.Generator(device=dev).manual_seed(31)
+    params = transformer.init_params(gen, cfg)
+    tokens = torch.randint(0, cfg.vocab_size, (8, 128), generator=gen,
+                           device=dev, dtype=torch.int32)
+    taken = []
+
+    def keep_first(op):
+        def call(*args):
+            if not taken:
+                taken.append(tuple(a.clone() if isinstance(a, torch.Tensor)
+                                   else a for a in args))
+            return op(*args)
+        return call
+
+    with torch.no_grad():
+        transformer.forward(params, tokens, cfg)              # warm
+        torch.cuda.synchronize()
+        for k in kernels.values():
+            k.launches = 0
+        with wrapped(moe, "moe_grouped_op", keep_first):
+            logits, _ = transformer.forward(params, tokens, cfg)
+        torch.cuda.synchronize()
+        launches = {n: k.launches for n, k in kernels.items()}
+    # add_norm: a norm before each mixer and each FFN and the final one,
+    # and each Mamba mixer's dt, B and C norms
+    want = {"flash_attention": 1, "mamba_scan": 7, "add_norm": 17 + 3 * 7,
+            "rope": 0, "moe_grouped": 8}
+    summary = {"phase": "14c jamba2-mini stage, 8 layers bf16, 8 of 16 "
+                        "experts held, B 8 x S 128",
+               "launches_forward": launches}
+    check_launches(summary, want, "launches_forward")
+
+    # (a) the kernel on the first MoE layer's arguments
+    x, order, offsets, weights, top_k, w_in, w_down = taken[0]
+    t, d = x.shape
+    e, ff = w_in.shape[0], w_in.shape[-1]
+    rows = int(offsets[-1])
+    with torch.no_grad():
+        got = mg.moe_grouped(x, order, offsets, weights, top_k, w_in, w_down)
+        plain = ref.moe_grouped_ref(x, order, offsets, weights, top_k, w_in,
+                                    w_down)
+        torch.cuda.synchronize()
+    held = torch.zeros(t * top_k, dtype=torch.bool, device=dev)
+    held[order[:rows]] = True
+    if got[~held].abs().max() != 0:
+        raise AssertionError("14c: moe_grouped wrote a pair of an expert "
+                             "not held")
+    # float32 sums in another order, h's bf16 rounding falling the other
+    # way for a few elements: the card test's tolerance
+    g, w = got[held].double(), plain[held].double()
+    live = w.abs().amax(-1) > 0
+    rel = ((g - w).pow(2).mean(-1).sqrt()
+           / w.pow(2).mean(-1).sqrt().clamp_min(1e-30))[live]
+    if (g[~live] != 0).any() or rel.max() >= 1e-2:
+        raise AssertionError(f"14c: moe_grouped against its plain version: "
+                             f"worst row's relative RMS {rel.max().item()}")
+    args = [(x, order, offsets, weights, top_k, w_in, w_down)]
+    t_bytes = (e * 3 * d * ff + rows * 2 * (d + ff)) * 2 / HBM_BYTES_PER_S
+    t_ops = 2 * rows * 3 * d * ff / BF16_OPS_PER_S
+    with torch.no_grad():
+        line = {"kernel": "moe_grouped",
+                "shape": f"jamba2-mini stage's first MoE layer: {t} tokens, "
+                         f"top-{top_k} of {cfg.moe_num_experts}, {e} held "
+                         f"experts of d {d}, ff {ff}, {rows} held rows",
+                "max_abs_err": (g - w).abs().max().item(),
+                "max_rel_rms": rel.max().item(),
+                "ms": time_ms(mg.moe_grouped, args, 20),
+                "eager_ms": time_ms(mg.moe_grouped, args, 20, graph=False),
+                "plain_ms": time_ms(ref.moe_grouped_ref, args, 2,
+                                    graph=False),
+                "library_ms": time_ms(expert_loop, args, 20, graph=False),
+                "bound_ms": max(t_bytes, t_ops) * 1e3,
+                "bound_by": "bytes" if t_bytes >= t_ops else "ops"}
+    print(json.dumps(line), flush=True)
+    del taken, got, plain, args
+
+    # (b) the forward with the kernel and with the loop in its place
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+
+    def forward_ms():
+        with torch.no_grad():
+            transformer.forward(params, tokens, cfg)
+            torch.cuda.synchronize()
+            start.record()
+            for _ in range(forwards):
+                out, _ = transformer.forward(params, tokens, cfg)
+            end.record()
+            end.synchronize()
+        return start.elapsed_time(end) / forwards, out
+
+    times = {"moe_grouped": [], "expert_loop": []}
+    for _ in range(2):
+        times["moe_grouped"].append(forward_ms()[0])
+        with wrapped(moe, "moe_grouped_op", lambda op: expert_loop):
+            ms_loop, loop_logits = forward_ms()
+        times["expert_loop"].append(ms_loop)
+    a, b = logits[:, -1].double(), loop_logits[:, -1].double()
+    summary.update({
+        "forward_ms": times,
+        "forwards_a_reading": forwards,
+        "last_logits_rel_rms_kernel_vs_loop":
+            ((a - b).pow(2).mean().sqrt() / b.pow(2).mean().sqrt()).item()})
+    print(json.dumps(summary), flush=True)
+    del params, logits, loop_logits
+    torch.cuda.empty_cache()
+    return line, summary
+
+
 def audio_embeds(seed: int, batch: int, frames: int, d: int):
     """The stub frontend's frame embeddings, drawn with numpy."""
     emb = np.random.RandomState(seed).standard_normal((batch, frames, d))
@@ -2816,6 +2984,7 @@ def main() -> int:
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import mamba_scan as ms
+    from repro_torch.kernels import moe_grouped as mg
     from repro_torch.kernels import ref
     from repro_torch.kernels import rope as rp
     from repro_torch.launch import serve, serve_real_experts
@@ -2898,6 +3067,10 @@ def main() -> int:
     phase("14 Jamba-v0.1 with its MoE, depth cut to whole periods")
     _, jamba = jamba_phases(fa, da, ms, an, rp)
 
+    phase("14c a Jamba2-Mini stage: dropless MoE over 8 held experts "
+          "through the grouped kernel")
+    moe_line, jamba2 = jamba2_stage_phase(fa, ms, an, rp, mg, ref)
+
     avail = mem_available_gb()
     layers = 2 if avail >= 40 else 1
     phase(f"15 LM-expert router, Moonlight-16B-A3B experts, full width, "
@@ -2954,10 +3127,11 @@ def main() -> int:
         shutil.rmtree(dryrun_dir, ignore_errors=True)
 
     # each kernel's launches on the main paths: the serving run, the
-    # routers and the five whole-model runs (8b, 11b, 13b, 14b, 16b), each
-    # counted from 0 around its run
+    # routers, the five whole-model runs (8b, 11b, 13b, 14b, 16b) and the
+    # Jamba2-Mini stage's forward (14c), each counted from 0 around its run
     launches = {"decode_attention": decode_launches}
     for counts in (sc2_router, fm_router, moon_router,
+                   jamba2["launches_forward"],
                    *(summary[key] for summary in (starcoder, falcon, moon,
                                                   jamba, whisper)
                      for key in ("launches_prefill",
@@ -2980,7 +3154,9 @@ def main() -> int:
         kernel_entry("add_norm", ADD_NORM_SOURCE, NO_TPU_KERNEL,
                      launches["add_norm"], norm_lines[0]),
         kernel_entry("rope", ROPE_SOURCE, NO_TPU_KERNEL, launches["rope"],
-                     rope_lines[0])]}))
+                     rope_lines[0]),
+        kernel_entry("moe_grouped", MOE_SOURCE, MOE_REPLACES,
+                     launches["moe_grouped"], moe_line)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

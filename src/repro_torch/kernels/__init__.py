@@ -9,12 +9,15 @@ plain PyTorch version in ``ref.py``.
   (CUDA C++, ``csrc/mamba_scan.cu``)
 - add_norm: a residual add and LayerNorm or RMSNorm in one launch (CUDA
   C++, ``csrc/add_norm.cu``; no TPU counterpart)
+- moe_grouped: a dropless MoE layer's expert products over the held
+  experts' sorted rows, two launches (CUDA C++, ``csrc/moe_grouped.cu``; no
+  TPU counterpart)
 - rope: rotate-half RoPE of q and k in one launch, in place (CUDA C++,
   ``csrc/rope.cu``; no TPU counterpart)
 """
 from repro_torch.kernels.ops import (add_norm_op, decode_attention_op,
                                      flash_attention_op, mamba_scan_op,
-                                     rope_op)
+                                     moe_grouped_op, rope_op)
 
 __all__ = ["add_norm_op", "decode_attention_op", "flash_attention_op",
-           "mamba_scan_op", "rope_op"]
+           "mamba_scan_op", "moe_grouped_op", "rope_op"]

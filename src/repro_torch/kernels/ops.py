@@ -18,12 +18,14 @@ from repro_torch.kernels.add_norm import add_norm
 from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.mamba_scan import mamba_scan
+from repro_torch.kernels.moe_grouped import moe_grouped
 from repro_torch.kernels.rope import rope
 
 
 # the model step's kernel wrappers whose ``launches`` a ``forward`` span
 # carries the growth of, under these names
-_COUNTED = {"norm_launches": add_norm, "rope_launches": rope}
+_COUNTED = {"norm_launches": add_norm, "rope_launches": rope,
+            "moe_launches": moe_grouped}
 
 
 def launch_counts() -> dict:
@@ -66,6 +68,13 @@ def add_norm_op(x, scale, bias=None, delta=None, *, norm_type: str,
     (x, its norm) without a delta."""
     _refuse_grad("add_norm", x, scale, bias, delta)
     return add_norm(x, scale, bias, delta, norm_type=norm_type, eps=eps)
+
+
+def moe_grouped_op(x, order, offsets, weights, top_k: int, w_in, w_down):
+    """x: [T,d]; order, weights: [T*k]; offsets: [E+1]; w_in: [E,d,2,ff];
+    w_down: [E,ff,d]. Returns out [T*k, d] (``ref.moe_grouped_ref``)."""
+    _refuse_grad("moe_grouped", x, weights, w_in, w_down)
+    return moe_grouped(x, order, offsets, weights, top_k, w_in, w_down)
 
 
 def rope_op(q, k, positions, freqs):

@@ -132,3 +132,33 @@ def rope_ref(q, k, positions, freqs):
     by the float32 frequencies freqs [hd/2]."""
     angles = rope_angles(positions, freqs)
     return rotate_ref(q, angles), rotate_ref(k, angles)
+
+
+def moe_grouped_ref(x, order, offsets, weights, top_k: int, w_in, w_down):
+    """The dropless MoE layer's expert products, one plain pair of products
+    an expert, in float32 (the kernel's accumulation), h and the result
+    each rounded once to x's dtype.
+
+    x: [T, d] tokens; ``order`` [T*k]: the (token, choice) pairs as flat
+    indices ``token * top_k + choice``, sorted by the held expert they
+    chose, the pairs of experts not held last; ``offsets`` [E+1]: where
+    each held expert's rows begin in ``order`` (``offsets[E]`` rows in
+    all); ``weights`` [T*k] float32: each pair's routing weight; ``w_in``
+    [E, d, 2, ff] (gate, up), ``w_down`` [E, ff, d]. Returns out [T*k, d]
+    in x's dtype: for a held pair p = order[r], out[p] = weights[p] *
+    (silu(x_t W_gate) * (x_t W_up)) W_down of its expert; zero for the
+    pairs of experts not held. The offsets are read on the host."""
+    d = x.shape[-1]
+    ff = w_in.shape[-1]
+    out = torch.zeros((order.shape[0], d), dtype=x.dtype, device=x.device)
+    bounds = offsets.tolist()
+    for e in range(len(bounds) - 1):
+        pairs = order[bounds[e]:bounds[e + 1]]
+        if not pairs.numel():
+            continue
+        xs = x[pairs // top_k].float()
+        gu = (xs @ w_in[e].reshape(d, 2 * ff).float()).reshape(-1, 2, ff)
+        h = (torch.nn.functional.silu(gu[:, 0]) * gu[:, 1]).to(x.dtype)
+        y = (h.float() @ w_down[e].float()) * weights[pairs].float()[:, None]
+        out[pairs] = y.to(x.dtype)
+    return out

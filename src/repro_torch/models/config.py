@@ -44,6 +44,12 @@ class ModelConfig:
     # elementwise in ff, so the split is mathematically exact. Set per-cell
     # by the launcher from the mesh; 1 = off.
     moe_ep_split: int = 1
+    # expert parallelism's cut (the port's): this card holds experts
+    # 0 .. moe_experts_held - 1 of the router's moe_num_experts (0 = all of
+    # them); choices of the others add nothing here. Needs moe_dropless.
+    moe_experts_held: int = 0
+    moe_dropless: bool = False     # sorted rows, no capacity, no drop
+    moe_renormalize: bool = True   # top-k weights over their sum
 
     # --- hybrid / ssm ---
     attn_period: int = 1           # jamba: attention every 8th layer
@@ -51,10 +57,12 @@ class ModelConfig:
     ssm_state_dim: int = 0
     ssm_conv_width: int = 4
     ssm_expand: int = 2
+    ssm_dt_bc_norms: bool = False  # RMSNorms of dt, B, C (jamba's mixer)
 
     # --- attention details ---
     rope_theta: float = 10000.0
     sliding_window: int = 0        # 0 = full attention
+    attn_rope: bool = True         # False: no positional encoding (jamba)
     mrope_sections: Tuple[int, ...] = ()   # qwen2-vl M-RoPE half-dim split
 
     # --- encoder-decoder (whisper) ---
@@ -165,11 +173,14 @@ class ModelConfig:
                 total += n * (d * 2 * di + di * self.ssm_conv_width
                               + di * (rk + 2 * st) + rk * di + di * st + di
                               + di * d + d)
+                if self.ssm_dt_bc_norms:
+                    total += n * (rk + 2 * st)
             if slot.ffn == "mlp":
                 mult = 3 if self.mlp_type == "swiglu" else 2
                 total += n * (mult * d * self.d_ff + d)
             elif slot.ffn == "moe":
-                e = self.moe_top_k if active_only else self.moe_num_experts
+                e = self.moe_top_k if active_only else (
+                    self.moe_experts_held or self.moe_num_experts)
                 ff = self.moe_d_ff or self.d_ff
                 mult = 3 if self.mlp_type == "swiglu" else 2
                 total += n * (d * self.moe_num_experts  # router (always dense)

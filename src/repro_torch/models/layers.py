@@ -420,6 +420,8 @@ def attention_block(params, x, cfg, positions, *, cache=None, pos=None,
         ring is updated IN PLACE (the new row written at slot pos % W) and
         returned as the new cache;
       - cross-attention: cross_kv=(k, v) precomputed.
+    ``cfg.attn_rope`` False leaves q and k unrotated (Jamba's attention
+    has no positional encoding).
     """
     b, s, d = x.shape
     hd = cfg.resolved_head_dim
@@ -436,7 +438,7 @@ def attention_block(params, x, cfg, positions, *, cache=None, pos=None,
         v = logical_reshape(
             x @ cast_param(params["wv"], compute_dtype, *ATTN_AXES["wv"]),
             (b, s, cfg.num_kv_heads, hd), *kv_axes)
-        if positions is not None:
+        if positions is not None and cfg.attn_rope:
             q, k = apply_rope_qk(q, k, positions, cfg.rope_theta,
                                  cfg.mrope_sections, cfg.attn_impl)
     else:

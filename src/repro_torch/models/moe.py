@@ -13,9 +13,22 @@ expert's capacity is dropped, as in GShard. Dispatch is a batched gather of the 
 products batched over experts, and the combine a batched gather back to
 token order, weighted by the renormalised router probabilities.
 
-The reference computes all of this in plain ``jnp`` (no Pallas kernel), so
-the port computes it with torch tensor ops, with no loop over experts or
-tokens; the matrix products are ``torch.matmul``. Two points keep the
+With ``cfg.moe_dropless`` the layer is the port's own (no counterpart in
+the reference): no groups, no capacity, nothing dropped, the top-k weights
+renormalised only with ``cfg.moe_renormalize``; and with
+``cfg.moe_experts_held`` it holds the weights of a run of the router's
+experts only (expert parallelism's share of one card), routes over all of
+them, and computes its own experts' part of the result: a choice of an
+expert it does not hold adds nothing here. The (token, choice) pairs are
+sorted by held expert on the device, with each expert's first row as a
+device tensor, and the expert products are the grouped kernel
+(``kernels/moe_grouped.py``; its plain version, one pair of products an
+expert, for the CPU and ``attn_impl="xla"``), so that no count is read on
+the host.
+
+The capacity layer's reference computes all of this in plain ``jnp`` (no
+Pallas kernel), so the port computes it with torch tensor ops, with no loop
+over experts or tokens; the matrix products are ``torch.matmul``. Two points keep the
 port's choices equal to the reference's: ``jax.lax.top_k`` puts the lower
 index first among equal probabilities (a zero-padded row ties all of
 them), which a stable descending sort reproduces and ``torch.topk`` does
@@ -24,19 +37,31 @@ not promise; and the slot positions are exact integer cumsums.
 from __future__ import annotations
 
 import math
+import threading
+from contextlib import contextmanager
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels.ops import moe_grouped_op
+from repro_torch.kernels.ref import moe_grouped_ref
 from repro_torch.models.layers import cast_param, dense_init
 from repro_torch.sharding.logical import (gather_leading, local_region,
                                           logical_constraint)
 
 
+def held_experts(cfg) -> int:
+    """The experts whose weights this card holds (``cfg.moe_experts_held``,
+    all of the router's where 0)."""
+    return cfg.moe_experts_held or cfg.moe_num_experts
+
+
 def init_moe(gen, cfg, dtype):
+    """The router over all ``moe_num_experts``; the expert weights of the
+    held ones only."""
     d = cfg.d_model
     s = cfg.moe_ep_split
-    e = cfg.moe_num_experts * s                      # virtual experts
+    e = held_experts(cfg) * s                        # virtual experts
     ff = (cfg.moe_d_ff or cfg.d_ff) // s
     return {
         "router": dense_init(gen, (d, cfg.moe_num_experts), dtype),
@@ -75,7 +100,8 @@ def route(params, xg, cfg, compute_dtype):
     top_w, top_i = torch.sort(probs, dim=-1, descending=True, stable=True)
     k = cfg.moe_top_k
     top_w, top_i = top_w[..., :k], top_i[..., :k]
-    top_w = top_w / torch.clamp(top_w.sum(-1, keepdim=True), min=1e-9)
+    if cfg.moe_renormalize:
+        top_w = top_w / torch.clamp(top_w.sum(-1, keepdim=True), min=1e-9)
     return probs, top_w, top_i
 
 
@@ -94,6 +120,11 @@ def moe_block(params, x, cfg, compute_dtype=torch.bfloat16):
     expert products inside one of their own, "moe_experts", so that a
     trace can tell its kernels from the model's others."""
     with torch.profiler.record_function("moe_block"):
+        if cfg.moe_dropless:
+            return _dropless_block(params, x, cfg, compute_dtype)
+        if cfg.moe_experts_held:
+            raise ValueError(f"{cfg.name}: moe_experts_held needs "
+                             "moe_dropless")
         return _moe_block(params, x, cfg, compute_dtype)
 
 
@@ -166,6 +197,63 @@ def _moe_block(params, x, cfg, compute_dtype):
     out = logical_constraint(y.reshape(b, s, d), "batch", "seq_q",
                              "embed_act")
     return out, aux, expert_load
+
+
+def _dropless_block(params, x, cfg, compute_dtype):
+    """The dropless layer over the held experts (experts 0 ..
+    ``held_experts(cfg)`` - 1): routing over all ``moe_num_experts``, the
+    held pairs sorted by expert, the grouped expert products, the weighted
+    sum over each token's choices in token order. Returns what
+    ``moe_block`` returns."""
+    if cfg.moe_ep_split != 1:
+        raise ValueError(f"{cfg.name}: the dropless layer takes no "
+                         "moe_ep_split")
+    b, s, d = x.shape
+    t, k, e = b * s, cfg.moe_top_k, cfg.moe_num_experts
+    held = held_experts(cfg)
+    xf = x.reshape(t, d)
+    probs, top_w, top_i = route(params, xf[None], cfg, compute_dtype)
+    flat_e = top_i.reshape(1, t * k)
+    counts = _counts(flat_e, e)[0]                            # [E]
+    frac_tokens = _counts(top_i[..., 0], e)[0].float() / t
+    aux = e * torch.sum(frac_tokens * probs[0].mean(dim=0))
+    # each held pair's row: a stable sort by held expert, the pairs of the
+    # experts not held last; each held expert's first row
+    key = torch.clamp(flat_e[0], max=held)
+    order = torch.sort(key, stable=True)[1]
+    offsets = F.pad(torch.cumsum(counts[:held], 0), (1, 0))
+    with torch.profiler.record_function("moe_experts"):
+        run = moe_grouped_op if cfg.attn_impl == "pallas" \
+            else moe_grouped_ref
+        out = run(xf, order, offsets, top_w.reshape(t * k), k,
+                  cast_param(params["w_in"], compute_dtype),
+                  cast_param(params["w_down"], compute_dtype))
+    tally = getattr(_TALLY, "current", None)
+    if tally is not None:
+        tally.append(torch.stack([offsets[-1], t * k - offsets[-1]]))
+    return out.view(t, k, d).sum(dim=1).view(b, s, d), aux, \
+        counts.to(torch.int32)
+
+
+# --------------------------------------------------------------------------- #
+# counters of a traced forward
+# --------------------------------------------------------------------------- #
+
+_TALLY = threading.local()
+
+
+@contextmanager
+def tallied(tally):
+    """For the length of the block, each dropless MoE layer this thread
+    runs appends to the list ``tally`` (None: nothing) a device tensor of
+    two counts: the rows its held experts computed and its choices of
+    experts not held. Nothing is read on the host here."""
+    prev = getattr(_TALLY, "current", None)
+    _TALLY.current = tally
+    try:
+        yield tally
+    finally:
+        _TALLY.current = prev
 
 
 def _dispatch(xg, router, cfg, cap: int, compute_dtype):

@@ -31,7 +31,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.ops import mamba_scan_op
-from repro_torch.models.layers import cast_param, dense_init
+from repro_torch.models.layers import apply_norm, cast_param, dense_init
 from repro_torch.sharding.logical import (gather_leading, local_region,
                                           logical_constraint)
 
@@ -49,7 +49,7 @@ def init_mamba(gen: torch.Generator, cfg, dtype):
                                                  math.log(1e-1), di)
                 ).astype(np.float32)
     dt_bias = dt + np.log(-np.expm1(-dt))  # inverse softplus
-    return {
+    p = {
         "in_proj": dense_init(gen, (d, 2 * di), dtype),
         "conv_w": dense_init(gen, (w, di), dtype, fan_in=w),
         "conv_b": torch.zeros((di,), dtype=dtype, device=dev),
@@ -60,6 +60,10 @@ def init_mamba(gen: torch.Generator, cfg, dtype):
         "D": torch.ones((di,), dtype=torch.float32, device=dev),
         "out_proj": dense_init(gen, (di, d), dtype, fan_in=di),
     }
+    if cfg.ssm_dt_bc_norms:       # the mixer's RMSNorm scales (jamba)
+        for name, n in (("dt_norm", rk), ("b_norm", st), ("c_norm", st)):
+            p[name] = torch.ones((n,), dtype=dtype, device=dev)
+    return p
 
 
 MAMBA_AXES = {
@@ -73,6 +77,8 @@ MAMBA_AXES = {
     "D": ("ssm_inner",),
     "out_proj": ("ssm_inner", "embed"),
 }
+# with ``cfg.ssm_dt_bc_norms``: the mixer's norm scales, replicated
+MAMBA_NORM_AXES = {"dt_norm": (None,), "b_norm": (None,), "c_norm": (None,)}
 
 
 def _causal_conv(x, conv_w, conv_b, history=None):
@@ -93,9 +99,13 @@ def _causal_conv(x, conv_w, conv_b, history=None):
 def _ssm_inputs(params, x_c, cfg, compute_dtype):
     """Project to (dt [.., di], B [.., st], C [.., st]), all float32:
     ``x_proj`` and ``dt_proj`` in the compute dtype, the softplus in
-    float32 with the dt bias. Under a mesh both products run on local
-    shards: ``x_proj``'s sum over the sharded channels is partial until
-    reduced, ``dt_proj``'s output is sharded as the channels are."""
+    float32 with the dt bias. With ``cfg.ssm_dt_bc_norms`` the split's
+    three parts each go through a weighted RMSNorm (``norm_eps``) before
+    ``dt_proj`` and the scan, as Jamba's mixer normalises them (under
+    ``"pallas"`` one launch of the norm kernel each). Under a mesh both
+    products run on local shards: ``x_proj``'s sum over the sharded
+    channels is partial until reduced, ``dt_proj``'s output is sharded as
+    the channels are."""
     rk, st = cfg.dt_rank, cfg.ssm_state_dim
     inner, rows = ("batch", None, "ssm_inner"), ("batch", None, None)
     (proj,) = local_region(
@@ -103,6 +113,12 @@ def _ssm_inputs(params, x_c, cfg, compute_dtype):
         (inner, MAMBA_AXES["x_proj"]), (rows,), partial=(("ssm_inner",),))
     proj = logical_constraint(proj, *rows)
     dt_r, b_c, c_c = torch.split(proj, [rk, st, st], dim=-1)
+    if cfg.ssm_dt_bc_norms:
+        dt_r, b_c, c_c = (
+            apply_norm(v, {"scale": params[name]}, "rmsnorm", cfg.norm_eps,
+                       cfg.attn_impl)
+            for v, name in ((dt_r, "dt_norm"), (b_c, "b_norm"),
+                            (c_c, "c_norm")))
     (dt_lin,) = local_region(
         _product, (dt_r, cast_param(params["dt_proj"], compute_dtype)),
         (rows, MAMBA_AXES["dt_proj"]), (inner,))

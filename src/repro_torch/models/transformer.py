@@ -67,6 +67,8 @@ def _slot_axes(cfg: ModelConfig, slot):
         a["attn"] = dict(L.ATTN_AXES)
     else:
         a["mamba"] = dict(ssm_lib.MAMBA_AXES)
+        if cfg.ssm_dt_bc_norms:
+            a["mamba"].update(ssm_lib.MAMBA_NORM_AXES)
     if slot.ffn is not None:
         a["norm2"] = dict(a["norm1"])
         if slot.ffn == "moe":
@@ -199,8 +201,12 @@ def forward(params, tokens, cfg: ModelConfig, positions=None,
     wall clock), the call records a ``forward`` span from entry to return
     and, on a card, a CUDA event pair around its launches on the current
     stream (the span's ``device_us``, read after a later synchronisation),
-    and ``norm_launches`` / ``rope_launches``: how many launches of the
-    norm and RoPE kernels the call made (``ops.launch_counts``)."""
+    and ``norm_launches`` / ``rope_launches`` / ``moe_launches``: how many
+    launches of the norm, RoPE and grouped MoE kernels the call made
+    (``ops.launch_counts``). A model with dropless MoE layers adds
+    ``moe_rows`` (rows its held experts computed) and ``moe_away`` (choices
+    of experts it does not hold); on a card the two counts are copied to
+    host memory behind the launches and read with ``device_us``."""
     tracer = obs_tracer.active()
     if not tracer.wall:
         return _forward(params, tokens, cfg, positions, input_embeds, mode)
@@ -213,12 +219,25 @@ def forward(params, tokens, cfg: ModelConfig, positions=None,
             end = torch.cuda.Event(enable_timing=True)
             start.record()
         before = ops.launch_counts()
-        out = _forward(params, tokens, cfg, positions, input_embeds, mode)
+        tally = [] if cfg.moe_dropless else None
+        with moe_lib.tallied(tally):
+            out = _forward(params, tokens, cfg, positions, input_embeds,
+                           mode)
         span.attrs.update({k: n - before[k]
                            for k, n in ops.launch_counts().items()})
+        counts = {}
+        if tally:
+            rows_away = torch.stack(tally).sum(dim=0)
+            if timed:
+                host = torch.empty(2, dtype=torch.int64, pin_memory=True)
+                host.copy_(rows_away, non_blocking=True)
+                counts = {"moe_rows": host[0], "moe_away": host[1]}
+            else:
+                rows, away = rows_away.tolist()
+                span.attrs.update(moe_rows=rows, moe_away=away)
         if timed:
             end.record()
-            tracer.defer(span, start, end)
+            tracer.defer(span, start, end, counts)
     return out
 
 

@@ -245,10 +245,12 @@ class Tracer:
         whose ``id`` children name and whose ``attrs`` it may add to."""
         return _Span(self, (kind, actor, name, parent, attrs))
 
-    def defer(self, ev: Event, start, end) -> None:
+    def defer(self, ev: Event, start, end, counts=None) -> None:
         """Attach a recorded CUDA event pair to ``ev``: read later into
-        ``attrs["device_us"]`` by ``read_device_times``."""
-        self._timed.append((ev, start, end))
+        ``attrs["device_us"]`` by ``read_device_times``, with ``counts``
+        (name -> a host tensor of one element that a copy enqueued before
+        ``end`` fills) into ``attrs[name]``."""
+        self._timed.append((ev, start, end, counts or {}))
 
     def read_device_times(self, wait: bool = False) -> None:
         """Read the deferred CUDA event pairs whose end has been reached
@@ -256,13 +258,15 @@ class Tracer:
         if not self.wall or not self._timed:
             return
         left = []
-        for ev, start, end in self._timed:
+        for item in self._timed:
+            ev, start, end, counts = item
             if wait:
                 end.synchronize()
             elif not end.query():
-                left.append((ev, start, end))
+                left.append(item)
                 continue
             ev.attrs["device_us"] = 1e3 * start.elapsed_time(end)
+            ev.attrs.update({k: int(v) for k, v in counts.items()})
         self._timed = left
 
     # ------------------------------------------------------------------ #

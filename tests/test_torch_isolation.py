@@ -86,7 +86,11 @@ def test_no_import_of_jax_or_reference(path):
 
 # copies the port has grown past the reference: its flight recorder's wall
 # clock (the recorder, the spans the simulator, the scheduler's assign and
-# the executor record, the wall-clock timeline and export). Each keeps every
+# the executor record, the wall-clock timeline and export; the recorder also
+# reads a forward's MoE counters with its device time), and the model
+# config's switches for Jamba2-Mini (held experts, the dropless layer, the
+# top-k weights as they are, attention without RoPE, the mixer's dt, B and
+# C norms), whose parameter count counts the held experts. Each keeps every
 # line of the reference renamed, in order, but the lines listed here, which
 # it changed; ``GROWN_DELTA`` pins every line it changed, deleted or added
 # (the sha256 of ``_delta``), so that a later edit of such a copy fails
@@ -116,10 +120,13 @@ GROWN = {
     "core/executor.py": [
         '            tracer.emit(now, "load", self.id, expert_id, dur=lat,',
         '            self.tracer.emit(now, "exec", self.id, eid, dur=lat,'],
+    "models/config.py": [
+        "                e = self.moe_top_k if active_only else "
+        "self.moe_num_experts"],
 }
 GROWN_DELTA = {
     "obs/tracer.py":
-        "c331203e73539ccf09ec94e41c3e71a9eee7c9e2d7ce7776d1f50bb79a521569",
+        "22126ccba2ce2aad0eaa424bc41da5abcb963d935090e05da25d9a229d5b7a14",
     "obs/timeline.py":
         "f83ca25e68a1555c4529cff6251ce6d90497dfa6795a6702139fb8bb7ddc3500",
     "obs/export.py":
@@ -130,6 +137,8 @@ GROWN_DELTA = {
         "c21c91af1565edbb1c566a0ae669712e265f29d790d375cf520f7dbba3d9381e",
     "core/executor.py":
         "dc1bdef6a3c2504255c1bcae29934e9314179acaa515dbc3bd93f45a3d14598a",
+    "models/config.py":
+        "873ab98b76e99a154e50101ba6b9eb12f55ce5d7d34b8fe7697f43881fad97fa",
 }
 
 

@@ -33,6 +33,7 @@ import torch
 from repro_torch.convert import params_from_reference
 from repro_torch.core import COSERVE, SAMBA_PARALLEL, run_real
 from repro_torch.launch import lm_coe_router as router
+from test_torch_generate import reference_fields
 
 EXAMPLE = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "examples", "lm_coe_router.py")
@@ -78,7 +79,7 @@ def weights(example):
 def test_config_is_the_examples_with_the_kernel_path(example):
     cfg = router.lm_config("smoke")
     assert cfg.attn_impl == "pallas"
-    assert dataclasses.asdict(dataclasses.replace(
+    assert reference_fields(dataclasses.replace(
         cfg, attn_impl="xla", compute_dtype="float32")) \
         == dataclasses.asdict(example.cfg)
     full = router.lm_config("full", layers=2)
@@ -103,7 +104,7 @@ def test_falcon_mamba_router_serves_every_prompt_like_the_example():
 def test_falcon_mamba_config():
     cfg = router.lm_config("smoke", arch="falcon_mamba_7b")
     assert cfg.attn_impl == "pallas" and cfg.param_dtype == "float32"
-    assert dataclasses.asdict(dataclasses.replace(
+    assert reference_fields(dataclasses.replace(
         cfg, attn_impl="xla", compute_dtype="float32")) \
         == dataclasses.asdict(load_example("falcon_mamba_7b").cfg)
     full = router.lm_config("full", layers=2, arch="falcon_mamba_7b")
@@ -130,7 +131,7 @@ def test_moonshot_router_serves_every_prompt_like_the_example():
 def test_moonshot_config():
     cfg = router.lm_config("smoke", arch="moonshot_v1_16b_a3b")
     assert cfg.attn_impl == "pallas" and cfg.param_dtype == "float32"
-    assert dataclasses.asdict(dataclasses.replace(
+    assert reference_fields(dataclasses.replace(
         cfg, attn_impl="xla", compute_dtype="float32")) \
         == dataclasses.asdict(load_example("moonshot_v1_16b_a3b").cfg)
     full = router.lm_config("full", layers=2, arch="moonshot_v1_16b_a3b")

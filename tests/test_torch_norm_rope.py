@@ -213,9 +213,9 @@ def test_a_wall_traced_forward_counts_the_launches(monkeypatch, arch, norms,
             cfg, attn_impl="xla"))
     pallas, xla = wall.events
     assert pallas.attrs == {"tokens": 16, "norm_launches": norms,
-                            "rope_launches": ropes}
+                            "rope_launches": ropes, "moe_launches": 0}
     assert xla.attrs == {"tokens": 16, "norm_launches": 0,
-                         "rope_launches": 0}
+                         "rope_launches": 0, "moe_launches": 0}
 
 
 def refused(name):

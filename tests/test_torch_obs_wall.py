@@ -208,7 +208,7 @@ def test_forward_records_only_inside_an_activated_wall_tracer():
     # count no launch
     assert (fwd.kind, fwd.name, fwd.attrs) == (
         "host", "forward", {"tokens": 16, "norm_launches": 0,
-                            "rope_launches": 0})
+                            "rope_launches": 0, "moe_launches": 0})
     torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 
